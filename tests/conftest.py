@@ -11,6 +11,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end test (real compiles)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+                   "skips without one")
 
 
 def pytest_addoption(parser):

@@ -1,0 +1,43 @@
+"""Import firewall: the port loads with JAX blocked and loads nothing of the
+JAX package; its sources name neither in an import statement."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+print(len(names), "modules;", "repro loaded:", bad)
+assert not bad, bad
+assert sys.modules["jax"] is None
+"""
+
+
+def test_port_imports_without_jax_or_reference():
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "repro loaded: []" in r.stdout
+    n = int(r.stdout.split()[0])
+    assert n >= 14, r.stdout            # every module of the slice was walked
+
+
+def test_port_sources_import_neither_jax_nor_reference():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+            for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.match(line)]
+    assert not hits, hits
