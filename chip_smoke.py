@@ -15,10 +15,14 @@ Phases (any failure exits non-zero and prints no result line):
 4. serve    — qwen2-1.5b at full published width, random weights from a
               seeded generator, ServingEngine(n_slots=4, cache_len=4096,
               temperature=0) over 8 requests; launch counts must equal
-              28 x prefills and 28 x decode steps; teacher-forced logits
-              with the kernels on must match the plain versions on the card
-              (f32 within 1e-3 of the largest logit; bf16 no further from the
-              f32 logits than twice the plain bf16 path).
+              28 x prefills and 28 x decode steps; on the tensors the model
+              hands the kernels (strided prefill views, the cache read in
+              place by a 4-lane decode step) each bf16 kernel must match its
+              plain version within 2e-2 of the call's output scale (the
+              activations reach ~40); teacher-forced logits with the
+              kernels on must match the plain versions on the card (f32
+              within 1e-3 of the largest logit; bf16, a loose extra check, no
+              further from the f32 logits than twice the plain bf16 path).
 5. report   — one JSON line of kernels, the nvidia-smi line, and the result
               line ``{"ok": true, "device": {...}}``.
 
@@ -297,6 +301,85 @@ def profile_decode(eng, prompts, Request, n_steps=5):
           f"top kernels per step: {top}", flush=True)
 
 
+def check_in_model_layouts(eng, prompts, Request):
+    """Hold both bf16 kernels against their plain versions on the very
+    tensors the model hands them: the strided q/k/v views of four prefills
+    (the 3000-token prompt among them) and the (B,T,KVH,D) cache that one
+    decode step with all four lanes busy reads in place.  Every layer's call
+    is checked.
+
+    The model's activations are far from unit scale (outputs up to ~40),
+    where one bf16 rounding step of an output is up to 0.25, and the bf16
+    flash-attention kernel rounds the probabilities P to bf16 for its P.V
+    product (the plain version keeps them in f32), which moves an output by
+    up to 2^-9 x max|v|.  So each call's largest error must be within
+    TOL[bf16] of that call's scale, max(1, max|plain output|); lse (f32)
+    within TOL[bf16] absolute.  A wrongly wired kernel (head group, mask,
+    stride) misses by a good part of the scale.  Returns, per kernel, the
+    largest absolute error, the largest |plain output|, the largest error
+    over its call's scale, and the largest lse error.
+    """
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn
+    fa, fd = attn.flash_attention_fwd, attn.flash_decode
+    stats = {n: {"max_abs_err": 0.0, "max_abs_value": 0.0, "max_scaled_err": 0.0,
+                 "max_lse_err": 0.0, "calls": 0}
+             for n in ("flash_attention_fwd", "flash_decode")}
+    layouts = {}
+
+    def record(name, o, r):
+        st = stats[name]
+        err = (o.float() - r.float()).abs().max().item()
+        value = r.float().abs().max().item()
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["max_abs_value"] = max(st["max_abs_value"], value)
+        st["max_scaled_err"] = max(st["max_scaled_err"], err / max(1.0, value))
+        st["calls"] += 1
+
+    def fa_checked(q, k, v, **kw):
+        o, lse = fa(q, k, v, **kw)
+        ro, rlse = ref.flash_attention_ref(q, k, v, **kw)
+        record("flash_attention_fwd", o, ro)
+        st = stats["flash_attention_fwd"]
+        st["max_lse_err"] = max(st["max_lse_err"], (lse - rlse).abs().max().item())
+        layouts.setdefault(("flash_attention_fwd", q.shape[2]),
+                           (tuple(q.shape), q.stride(), k.stride(), q.dtype))
+        return o, lse
+
+    def fd_checked(q, k, v, pos, qpos, **kw):
+        o = fd(q, k, v, pos, qpos, **kw)
+        record("flash_decode", o, ref.flash_decode_ref(q, k, v, pos, qpos, **kw))
+        layouts.setdefault(("flash_decode", q.shape[0]),
+                           (tuple(k.shape), q.stride(), k.stride(), q.dtype))
+        return o
+
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    pick = [longest] + [i for i in range(len(prompts)) if i != longest][:eng.n_slots - 1]
+    for j, i in enumerate(pick):
+        eng.add_request(Request(rid=200 + j, prompt=prompts[i], max_new_tokens=4))
+    attn.flash_attention_fwd, attn.flash_decode = fa_checked, fd_checked
+    try:
+        eng.step()                           # four prefills, one 4-lane decode step
+        torch.cuda.synchronize()
+    finally:
+        attn.flash_attention_fwd, attn.flash_decode = fa, fd
+    eng.run()
+    for (name, n), (shape, qs, ks, dt) in sorted(layouts.items()):
+        print(f"in-model layout {name} ({n}): shape {shape} {str(dt)[6:]}, "
+              f"q strides {qs}, k strides {ks}", flush=True)
+    tol = TOL[torch.bfloat16]
+    print(f"in-model kernels vs plain versions ({[len(prompts[i]) for i in pick]} "
+          f"prefills, one 4-lane decode step, every layer): {stats}; tol {tol:g} x "
+          f"max(1, max|plain output|) per call, lse {tol:g}", flush=True)
+    for name, st in stats.items():
+        if st["calls"] == 0:
+            fail(f"in-model check saw no call of {name}")
+        if not (st["max_scaled_err"] <= tol and st["max_lse_err"] <= tol):
+            fail(f"{name} in the model's layout disagrees with its plain version: "
+                 f"{st}")
+    return stats
+
+
 def serve(dev):
     from repro_torch.configs.base import RunPolicy, get_config
     from repro_torch.kernels import ops
@@ -374,6 +457,7 @@ def serve(dev):
           f"peak memory {peak_gb:.2f} GB", flush=True)
 
     profile_decode(eng, prompts, Request)
+    in_model = check_in_model_layouts(eng, prompts, Request)
 
     # teacher-forced: the longest request, kernels on vs plain versions on card
     del eng
@@ -406,7 +490,7 @@ def serve(dev):
         fail(f"bf16 kernels-on logits are {dist['kernels bf16']:.4f} from the f32 ones, "
              f"more than {BF16_ERROR_RATIO} x the plain bf16 path's "
              f"{dist['plain bf16']:.4f}")
-    return counts
+    return counts, in_model
 
 
 # ---------------------------------------------------------------- main
@@ -454,7 +538,12 @@ def main():
     torch.cuda.empty_cache()
 
     phase("serve")
-    counts = serve(dev)
+    counts, in_model = serve(dev)
+    for name, row in (("flash_attention_fwd", fa), ("flash_decode", fd)):
+        st = in_model[name]
+        row["in_model_max_abs_err"] = st["max_abs_err"]
+        row["in_model_max_abs_value"] = st["max_abs_value"]
+        row["in_model_max_scaled_err"] = st["max_scaled_err"]
 
     phase("report")
     kernels = [

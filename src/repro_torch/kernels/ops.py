@@ -1,30 +1,14 @@
-"""Dispatch for the models: the CUDA kernel for a CUDA tensor, the plain
-version for a CPU tensor, and the plain version when the kernels are off.
+"""Launch counts of the CUDA kernels' wrappers.
 
-``use_kernel`` is RunPolicy-driven (``use_pallas``).  With it on, a CUDA
-tensor either launches the kernel or raises; nothing falls back.
+The models call the wrappers (``flash_attention_fwd``, ``flash_decode``)
+directly: a CPU tensor goes to the plain version, a CUDA tensor launches the
+kernel or raises.  Each wrapper adds one to its ``launches`` where it launches
+its kernel, and nowhere else.
 """
 from __future__ import annotations
 
-from . import ref
 from .decode_attention import flash_decode
 from .flash_attention import flash_attention_fwd
-
-
-def attention(q, k, v, *, window=None, causal_shift=0, use_kernel=True):
-    """q (B,H,Sq,D), k/v (B,KVH,Skv,D) -> o (B,H,Sq,D)."""
-    if use_kernel:
-        return flash_attention_fwd(q, k, v, window=window,
-                                   causal_shift=causal_shift)[0]
-    return ref.flash_attention_ref(q, k, v, window=window,
-                                   causal_shift=causal_shift)[0]
-
-
-def decode_attention(q, k, v, pos, qpos, *, window=None, use_kernel=True):
-    """q (B,H,D), k/v (B,KVH,T,D), pos (B,T), qpos (B,) -> o (B,H,D)."""
-    if use_kernel:
-        return flash_decode(q, k, v, pos, qpos, window=window)
-    return ref.flash_decode_ref(q, k, v, pos, qpos, window=window)
 
 
 def launch_counts() -> dict[str, int]:

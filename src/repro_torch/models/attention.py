@@ -19,7 +19,8 @@ import math
 
 import torch
 
-from ..kernels import ops
+from ..kernels.decode_attention import flash_decode
+from ..kernels.flash_attention import flash_attention_fwd
 from .layers import apply_rope
 from .module import ParamSpec
 
@@ -141,9 +142,9 @@ def decode_attention(p, cache, x, position, *, n_heads, n_kv, d_head,
     kk, vv, pos_kv = cache["k"], cache["v"], cache["pos"]
     g = n_heads // n_kv
     if use_kernel:
-        o = ops.decode_attention(q.reshape(B, n_heads, d_head),
-                                 kk.permute(0, 2, 1, 3), vv.permute(0, 2, 1, 3),
-                                 pos_kv, position.to(torch.int32), window=window)
+        o = flash_decode(q.reshape(B, n_heads, d_head),
+                         kk.permute(0, 2, 1, 3), vv.permute(0, 2, 1, 3),
+                         pos_kv, position.to(torch.int32), window=window)
         return o.reshape(B, 1, n_kv, g, d_head), cache
     s = torch.einsum("bqkgd,btkd->bkgqt", q, kk).float() / math.sqrt(d_head)
     pq = position[:, None, None, None, None]
@@ -172,22 +173,26 @@ def pallas_attention(q, k, v, window=None):
     """
     B, S, KV, G, dh = q.shape
     qk = q.reshape(B, S, KV * G, dh).permute(0, 2, 1, 3)
-    o = ops.attention(qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                      window=window, use_kernel=True)
+    o, _ = flash_attention_fwd(qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                               window=window)
     return o.permute(0, 2, 1, 3).reshape(B, S, KV, G, dh)
+
+
+def attend(q, k, v, positions, impl, window=None, block=None):
+    """Causal self-attention of (B,S,KV,G,dh) q over (B,S,KV,dh) k/v by the
+    path ``impl`` names; the one place that choice is made."""
+    if impl == "pallas":
+        return pallas_attention(q, k, v, window)
+    if impl == "local" and window is not None and q.shape[1] > 2 * window:
+        raise NotImplementedError(
+            "local_chunk_attention: ROADMAP module queue (windowed archs)")
+    if impl == "blocked":
+        return blocked_attention(q, k, v, positions, positions, window, block=block)
+    return plain_attention(q, k, v, positions, positions, window)
 
 
 def full_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta,
                    window=None, impl="plain", use_rope=True, block=512):
     """Full-sequence self-attention (train / prefill). Returns (B,S,D)."""
     q, k, v = qkv_proj(p, x, n_heads, n_kv, d_head, positions, rope_theta, use_rope)
-    if impl == "pallas":
-        o = pallas_attention(q, k, v, window)
-    elif impl == "local" and window is not None and x.shape[1] > 2 * window:
-        raise NotImplementedError(
-            "local_chunk_attention: ROADMAP module queue (windowed archs)")
-    elif impl == "blocked":
-        o = blocked_attention(q, k, v, positions, positions, window, block=block)
-    else:
-        o = plain_attention(q, k, v, positions, positions, window)
-    return out_proj(p, o)
+    return out_proj(p, attend(q, k, v, positions, impl, window, block=block))

@@ -170,15 +170,7 @@ def apply_block_full(bt, p, x, positions, cfg: ModelConfig, policy: RunPolicy,
     else:
         q, k, v = attn.qkv_proj(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.d_head, positions, cfg.rope_theta, cfg.use_rope)
-        if impl == "pallas":
-            o = attn.pallas_attention(q, k, v, cfg.window)
-        elif impl == "local":
-            raise NotImplementedError(
-                "local_chunk_attention: ROADMAP module queue (windowed archs)")
-        elif impl == "blocked":
-            o = attn.blocked_attention(q, k, v, positions, positions, cfg.window)
-        else:
-            o = attn.plain_attention(q, k, v, positions, positions, cfg.window)
+        o = attn.attend(q, k, v, positions, impl, cfg.window)
         a = attn.out_proj(p["attn"], o)
         state = _cache_from_kv(k, v, positions, cache_len, cfg)
     x = x + a

@@ -15,6 +15,7 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import flash_decode as j_flash_decode
 from repro.kernels.flash_attention import flash_attention_fwd as j_flash_attention_fwd
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import MAX_CHUNK, flash_decode, split_plan
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
@@ -91,15 +92,19 @@ def test_flash_decode_matches_pallas(B, H, KVH, T, D, dt, window):
 
 
 def test_ops_dispatch_matches_plain_on_cpu():
-    """On the CPU the kernel route and the plain route are the same function."""
+    """On the CPU each wrapper is its plain version, also on the strided views
+    the model passes, and counts no launch."""
     _, (q, k, v, pos, qpos) = _decode_inputs(2, 4, 2, 100, 32, "f32")
-    a = ops.decode_attention(q, k, v, pos, qpos, use_kernel=True)
-    b = ops.decode_attention(q, k, v, pos, qpos, use_kernel=False)
-    assert torch.equal(a, b)
-    qa = torch.randn(1, 4, 20, 16, generator=torch.Generator().manual_seed(0))
-    ka = torch.randn(1, 2, 20, 16, generator=torch.Generator().manual_seed(1))
-    assert torch.equal(ops.attention(qa, ka, ka), ops.attention(qa, ka, ka, use_kernel=False))
     ops.reset_launch_counts()
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    assert torch.equal(flash_decode(q, kt.transpose(1, 2), vt.transpose(1, 2), pos, qpos),
+                       tref.flash_decode_ref(q, k, v, pos, qpos))
+    g = torch.Generator().manual_seed(0)
+    qs, ks = torch.randn(1, 20, 4, 16, generator=g), torch.randn(1, 20, 2, 16, generator=g)
+    qa, ka = qs.permute(0, 2, 1, 3), ks.permute(0, 2, 1, 3)
+    o, lse = flash_attention_fwd(qa, ka, ka)
+    ro, rlse = tref.flash_attention_ref(qa.contiguous(), ka.contiguous(), ka.contiguous())
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
     assert ops.launch_counts() == {"flash_attention_fwd": 0, "flash_decode": 0}
 
 
