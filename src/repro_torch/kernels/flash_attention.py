@@ -1,10 +1,14 @@
-"""Flash-attention forward: the CUDA kernel in ``csrc/flash_attention.cu``.
+"""Flash attention: the CUDA kernels in ``csrc/flash_attention.cu`` (forward)
+and ``csrc/flash_attention_bwd.cu`` (backward: dq, then dk/dv), and the
+autograd Function that joins them.
 
-Replaces the TPU kernel ``repro/kernels/flash_attention.py:_fwd_kernel``.
-Layouts: q (B,H,Sq,D), k/v (B,KVH,Skv,D), H = KVH * G, query head h reads KV
-head h // G.  The inputs may be strided views (the model passes transposed
-views of its (B,S,H,D) activations, so nothing is copied); only the last dim
-must be contiguous.
+Replaces the TPU kernels of ``repro/kernels/flash_attention.py``:
+``_fwd_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel`` and their
+``custom_vjp``.  Layouts: q (B,H,Sq,D), k/v (B,KVH,Skv,D), H = KVH * G, query
+head h reads KV head h // G.  The inputs may be strided views (the model
+passes transposed views of its (B,S,H,D) activations, so nothing is copied);
+only the last dim must be contiguous.  Outputs are allocated in (B,S,heads,D)
+memory and returned as (B,heads,S,D) views, the layout the model reads back.
 """
 from __future__ import annotations
 
@@ -13,18 +17,18 @@ import ctypes
 import torch
 
 from . import build
-from .ref import flash_attention_ref
+from .ref import (flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
+                  flash_attention_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _bind():
-    lib = build.load("flash_attention")
-    fn = lib.fa_fwd
+def _bind(lib_name, fn_name, n_ptrs, n_strided):
+    fn = getattr(build.load(lib_name), fn_name)
     if fn.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 5 + [I] * 6 + [L] * 12 + [I, I, I, P]
+        fn.argtypes = [_P] * n_ptrs + [_I] * 6 + [_L] * (3 * n_strided) + [_I, _I, _I, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -38,49 +42,175 @@ def _check_strided(name, t, align_elems):
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
+def _check_inputs(fn, q, k, v, window, **same_as_q):
+    """Validate what every kernel here takes; returns (B, H, KVH, Sq, Skv, D).
+    ``same_as_q`` names further (B,H,Sq,D) tensors (o, do)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    B, H, Sq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"{fn}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    KVH, Skv = k.shape[1], k.shape[2]
+    if H % KVH:
+        raise ValueError(f"{fn}: H={H} not a multiple of KVH={KVH}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {D} not in {_HEAD_DIMS}")
+    tensors = {"q": q, "k": k, "v": v, **same_as_q}
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors.values()):
+        raise ValueError(f"{fn}: dtypes {[str(t.dtype) for t in tensors.values()]}")
+    if any(t.device != q.device for t in tensors.values()):
+        raise ValueError(f"{fn}: tensors on different devices")
+    for name, t in same_as_q.items():
+        if t.shape != q.shape:
+            raise ValueError(f"{fn}: {name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"{fn}: window {window} < 1")
+    for name, t in tensors.items():
+        _check_strided(name, t, 8)
+    return B, H, KVH, Sq, Skv, D
+
+
+def _check_rowstat(fn, name, t, q):
+    B, H, Sq = q.shape[:3]
+    if t.shape != (B, H, Sq) or t.dtype != torch.float32 or not t.is_contiguous() \
+            or t.device != q.device:
+        raise ValueError(f"{fn}: {name} must be contiguous f32 {(B, H, Sq)} on "
+                         f"{q.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _heads_major(B, S, heads, D, like):
+    """Empty (B,S,heads,D) memory viewed as (B,heads,S,D)."""
+    return torch.empty((B, S, heads, D), dtype=like.dtype,
+                       device=like.device).permute(0, 2, 1, 3)
+
+
+def _run(fn, name, *args):
+    with torch.cuda.device(args[-1]):
+        err = fn(*args[:-1], torch.cuda.current_stream(args[-1]).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+
+
 def flash_attention_fwd(q, k, v, *, window=None, causal_shift=0):
     """Causal GQA attention.  Returns (o (B,H,Sq,D), lse (B,H,Sq) f32).
 
     A CPU tensor goes to the plain version; a CUDA tensor launches the
     kernel (and counts the launch in ``flash_attention_fwd.launches``) or
-    raises.  ``o`` is allocated as (B,Sq,H,D) and returned as a (B,H,Sq,D)
-    view, the layout the model's output projection reads.
+    raises.  The kernel's output has no autograd history, so a call whose
+    inputs require grad, with grad mode on, raises on every device (the CPU
+    too, so that the CPU tests catch what would train wrongly on the card):
+    differentiable callers use ``flash_attention``.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_fwd: the inputs require grad but the "
+                           "kernel's output would carry none; call flash_attention")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window, causal_shift=causal_shift)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
-    B, H, Sq, D = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    KVH, Skv = k.shape[1], k.shape[2]
-    if H % KVH:
-        raise ValueError(f"flash_attention_fwd: H={H} not a multiple of KVH={KVH}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {D} not in {_HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention_fwd: dtypes {q.dtype} {k.dtype} {v.dtype}")
-    if not (k.device == q.device == v.device):
-        raise ValueError("flash_attention_fwd: q, k, v on different devices")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention_fwd: window {window} < 1")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_strided(name, t, 8)
-    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    B, H, KVH, Sq, Skv, D = _check_inputs("flash_attention_fwd", q, k, v, window)
+    o = _heads_major(B, Sq, H, D, q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _bind()
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 B, H, KVH, Sq, Skv, D,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                 0 if window is None else int(window), int(causal_shift),
-                 _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention_fwd: kernel launch failed (error {err})")
+    _run(_bind("flash_attention", "fa_fwd", 5, 4), "flash_attention_fwd",
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+         B, H, KVH, Sq, Skv, D,
+         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+         0 if window is None else int(window), int(causal_shift),
+         _DTYPES[q.dtype], q.device)
     flash_attention_fwd.launches += 1
     return o, lse
 
 
-flash_attention_fwd.launches = 0
+def flash_attention_bwd_dq(q, k, v, o, lse, do, *, window=None, causal_shift=0):
+    """First part of the backward: (dq (B,H,Sq,D), delta (B,H,Sq) f32), with
+    delta = rowsum(do * o), which ``flash_attention_bwd_dkv`` reads.
 
+    CPU tensors go to the plain version; CUDA tensors launch the kernel
+    (counted in ``flash_attention_bwd_dq.launches``) or raise.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_ref(q, k, v, o, lse, do, window, causal_shift)
+    fn = "flash_attention_bwd_dq"
+    B, H, KVH, Sq, Skv, D = _check_inputs(fn, q, k, v, window, o=o, do=do)
+    _check_rowstat(fn, "lse", lse, q)
+    dq = _heads_major(B, Sq, H, D, q)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    _run(_bind("flash_attention_bwd", "fa_bwd_dq", 8, 6), fn,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+         B, H, KVH, Sq, Skv, D,
+         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+         *do.stride()[:3], *dq.stride()[:3],
+         0 if window is None else int(window), int(causal_shift),
+         _DTYPES[q.dtype], q.device)
+    flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, window=None, causal_shift=0):
+    """Second part of the backward: (dk, dv) (B,KVH,Skv,D), summed over the G
+    query heads of each KV head.
+
+    CPU tensors go to the plain version; CUDA tensors launch the kernel
+    (counted in ``flash_attention_bwd_dkv.launches``) or raise.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window, causal_shift)
+    fn = "flash_attention_bwd_dkv"
+    B, H, KVH, Sq, Skv, D = _check_inputs(fn, q, k, v, window, do=do)
+    _check_rowstat(fn, "lse", lse, q)
+    _check_rowstat(fn, "delta", delta, q)
+    dk, dv = _heads_major(B, Skv, KVH, D, k), _heads_major(B, Skv, KVH, D, v)
+    _run(_bind("flash_attention_bwd", "fa_bwd_dkv", 8, 6), fn,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+         B, H, KVH, Sq, Skv, D,
+         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+         *dk.stride()[:3], *dv.stride()[:3],
+         0 if window is None else int(window), int(causal_shift),
+         _DTYPES[q.dtype], q.device)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, window=None, causal_shift=0):
+    """Backward of causal GQA attention given its output ``o``, its ``lse``
+    and the output's gradient ``do``.  Returns (dq, dk, dv) in the inputs'
+    dtypes.  CPU tensors go to the plain versions; CUDA tensors launch both
+    kernels (dq first: it writes the delta that dk/dv reads) or raise."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, window=window,
+                                       causal_shift=causal_shift)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, window=window,
+                                     causal_shift=causal_shift)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel, and the backward
+    kernels in backward (the counterpart of the JAX package's custom_vjp).
+    On the CPU the same wiring runs the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal_shift):
+        o, lse = flash_attention_fwd(q, k, v, window=window, causal_shift=causal_shift)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.causal_shift = window, causal_shift
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:       # the kernels read rows; autograd may hand
+            do = do.contiguous()     # any layout
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, window=ctx.window,
+                                         causal_shift=ctx.causal_shift)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, window=None, causal_shift=0):
+    """Causal GQA attention output (B,H,Sq,D), differentiable in q, k, v."""
+    return FlashAttention.apply(q, k, v, window, causal_shift)
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

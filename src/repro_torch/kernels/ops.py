@@ -1,21 +1,24 @@
 """Launch counts of the CUDA kernels' wrappers.
 
-The models call the wrappers (``flash_attention_fwd``, ``flash_decode``)
-directly: a CPU tensor goes to the plain version, a CUDA tensor launches the
-kernel or raises.  Each wrapper adds one to its ``launches`` where it launches
-its kernel, and nowhere else.
+The models call the wrappers (``flash_attention`` through its autograd
+Function, ``flash_decode``) directly: a CPU tensor goes to the plain version,
+a CUDA tensor launches the kernel or raises.  Each wrapper adds one to its
+``launches`` where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
 from .decode_attention import flash_decode
-from .flash_attention import flash_attention_fwd
+from .flash_attention import (flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                              flash_attention_fwd)
+
+_WRAPPERS = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv,
+             flash_decode)
 
 
 def launch_counts() -> dict[str, int]:
-    return {"flash_attention_fwd": flash_attention_fwd.launches,
-            "flash_decode": flash_decode.launches}
+    return {w.__name__: w.launches for w in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    flash_attention_fwd.launches = 0
-    flash_decode.launches = 0
+    for w in _WRAPPERS:
+        w.launches = 0

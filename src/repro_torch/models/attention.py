@@ -5,7 +5,8 @@ Execution paths (numerically equivalent where applicable):
 * ``plain``    — materialises (Sq, Skv) scores.
 * ``blocked``  — online-softmax loop over KV blocks, O(S) live memory; used
                  for long prefill without the kernels.
-* ``pallas``   — the flash-attention CUDA kernel (the name of the RunPolicy
+* ``pallas``   — the flash-attention CUDA kernels, forward and backward,
+                 through their autograd Function (the name of the RunPolicy
                  switch, ``use_pallas``, is kept from the JAX package).
 
 Decode attends one query token against a (possibly ring-buffered) cache,
@@ -20,7 +21,7 @@ import math
 import torch
 
 from ..kernels.decode_attention import flash_decode
-from ..kernels.flash_attention import flash_attention_fwd
+from ..kernels.flash_attention import flash_attention
 from .layers import apply_rope
 from .module import ParamSpec
 
@@ -166,15 +167,15 @@ def out_proj(p, attn_out):
 
 
 def pallas_attention(q, k, v, window=None):
-    """Send (B,S,KV,G,dh) GQA tensors through the flash-attention kernel.
+    """Send (B,S,KV,G,dh) GQA tensors through the flash-attention kernels.
 
-    The kernel reads transposed views, so nothing is copied on the way in,
-    and its output comes back in (B,S,H,dh) memory order.
+    The kernels read transposed views, so nothing is copied on the way in,
+    and the output (and, in backward, dq, dk and dv) comes back in
+    (B,S,heads,dh) memory order.
     """
     B, S, KV, G, dh = q.shape
     qk = q.reshape(B, S, KV * G, dh).permute(0, 2, 1, 3)
-    o, _ = flash_attention_fwd(qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                               window=window)
+    o = flash_attention(qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), window)
     return o.permute(0, 2, 1, 3).reshape(B, S, KV, G, dh)
 
 

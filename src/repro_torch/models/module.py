@@ -113,3 +113,21 @@ def tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def flatten(tree, prefix=()):
+    """[(path, leaf)] of a nested dict of tensors, keys sorted at each level."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in flatten(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def unflatten(items):
+    """The nested dict that ``flatten`` took apart, from (path, leaf) pairs."""
+    out: dict = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out

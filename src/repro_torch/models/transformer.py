@@ -3,15 +3,18 @@
 Layers are grouped into repeating *pattern units* as in the JAX package;
 unit parameters and decode state are stacked along a leading ``layers`` dim
 and the port walks the units in a Python loop (PyTorch runs eagerly, so
-``scan_layers`` changes nothing here).  Recurrent (RG-LRU), RWKV, MoE and the
+``scan_layers`` changes nothing here).  Under autograd each unit is
+rematerialised as ``RunPolicy.remat`` says (``_remat_wrap``).  Recurrent (RG-LRU), RWKV, MoE and the
 vit/encodec frontends raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from . import attention as attn
 from .layers import (apply_glu_mlp, apply_norm, apply_plain_mlp, embed_lookup,
@@ -253,6 +256,31 @@ def _unit(tree, u):
     return tree_map(lambda a: a[u], tree)
 
 
+# the unbatched matmuls: the analogue of JAX's dots_with_no_batch_dims_saveable
+_SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                               [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _remat_wrap(fn, policy: RunPolicy):
+    """Rematerialise ``fn`` in backward, the counterpart of the JAX package's
+    ``_remat_wrap``.  ``none`` keeps every activation; ``full`` recomputes
+    all of ``fn``; ``dots`` keeps the outputs of ``aten.mm``/``aten.addmm``
+    and recomputes the rest.  Under ``dots`` and ``full`` the flash-attention
+    forward therefore runs twice per layer in a training step.  Without
+    autograd (prefill under ``inference_mode``) ``fn`` runs as it is."""
+    if policy.remat == "none":
+        return fn
+    if policy.remat not in ("dots", "full"):
+        raise ValueError(f"remat {policy.remat!r} not in none | dots | full")
+    kw = {"context_fn": _SAVE_DOTS} if policy.remat == "dots" else {}
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
 def forward(params, batch, cfg: ModelConfig, policy: RunPolicy,
             return_cache: bool = False, cache_len: int | None = None):
     """Full-sequence forward.
@@ -269,15 +297,21 @@ def forward(params, batch, cfg: ModelConfig, policy: RunPolicy,
     cl = cache_len if return_cache else None
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
 
+    def unit_fn(x, unit_params):
+        unit_aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+        states = {}
+        for i, bt in enumerate(pattern):
+            x, a, st = apply_block_full(bt, unit_params[f"b{i}"], x, positions, cfg,
+                                        policy, cache_len=cl)
+            unit_aux = unit_aux + a
+            states[f"b{i}"] = st
+        return x, unit_aux, states
+
+    unit_fn_r = _remat_wrap(unit_fn, policy)
     unit_states = []
     for u in range(n_units):
-        up = _unit(cparams["units"], u)
-        st = {}
-        for i, bt in enumerate(pattern):
-            x, a, s = apply_block_full(bt, up[f"b{i}"], x, positions, cfg, policy,
-                                       cache_len=cl)
-            aux = aux + a
-            st[f"b{i}"] = s
+        x, a, st = unit_fn_r(x, _unit(cparams["units"], u))
+        aux = aux + a
         unit_states.append(st)
     tail_states = {}
     for i in range(tail):

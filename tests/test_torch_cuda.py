@@ -6,7 +6,10 @@ they run on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 2e-5 with TF32 off, bf16 2e-2.
+Tolerances: f32 2e-5 with TF32 off, bf16 2e-2; for the backward kernels
+f32 5e-5 (the reference's grad bound) and bf16 2e-2, each of the call's
+scale max(1, max|plain grad|): the bf16 kernels round P and dS to bf16 for
+their products, as the forward rounds P.
 """
 import numpy as np
 import pytest
@@ -14,9 +17,13 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import flash_decode
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                 flash_attention_bwd_dkv,
+                                                 flash_attention_bwd_dq,
+                                                 flash_attention_fwd)
 
 TOL = {"f32": 2e-5, "bf16": 2e-2}
+GRAD_TOL = {"f32": 5e-5, "bf16": 2e-2}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -87,3 +94,72 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(1, 4, 16, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtypes"):
         flash_attention_fwd(q, q[:, :2], q[:, :2])
+
+
+def _scaled_err(got, want):
+    return ((got.float() - want.float()).abs().max() /
+            max(1.0, want.float().abs().max().item())).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("window,shift", [(None, 0), (50, 0), (None, 37), (70, 21)])
+@pytest.mark.parametrize("seq_major", [False, True])
+def test_cuda_flash_attention_bwd_matches_plain(dt, D, window, shift, seq_major):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, H, KVH, Sq = 2, 12, 2, 200
+    mk = lambda *s: _heads_major(torch.randn(*s, generator=g, device=dev).to(TDT[dt]),
+                                 seq_major)
+    q, k, v = mk(B, H, Sq, D), mk(B, KVH, Sq + shift, D), mk(B, KVH, Sq + shift, D)
+    do = mk(B, H, Sq, D)
+    o, lse = ref.flash_attention_ref(q, k, v, window=window, causal_shift=shift)
+    n_dq, n_dkv = flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, window=window, causal_shift=shift)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=window,
+                                       causal_shift=shift)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.launches == n_dq + 1
+    assert flash_attention_bwd_dkv.launches == n_dkv + 1
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _scaled_err(a, b) < GRAD_TOL[dt], name
+    # delta, which the dq kernel computes for dk/dv
+    _, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, window=window,
+                                      causal_shift=shift)
+    assert (delta - (do.float() * o.float()).sum(-1)).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_cuda_flash_attention_function_grads(dt):
+    """Autograd through FlashAttention on the card against autograd through
+    the plain forward; the forward wrapper refuses inputs that need grad."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, H, KVH, S, D = 1, 12, 2, 300, 128
+    leaves = [torch.randn(*s, generator=g, device=dev).to(TDT[dt])
+              for s in ((B, H, S, D), (B, KVH, S, D), (B, KVH, S, D))]
+    w = torch.randn(B, H, S, D, generator=g, device=dev)
+    a = [t.clone().requires_grad_() for t in leaves]
+    b = [t.clone().requires_grad_() for t in leaves]
+    (flash_attention(*a).float() * w).sum().backward()
+    (ref.flash_attention_ref(*b)[0].float() * w).sum().backward()
+    for x, y, name in zip(a, b, "qkv"):
+        assert x.grad is not None and x.grad.abs().max().item() > 0, name
+        assert _scaled_err(x.grad, y.grad) < GRAD_TOL[dt], name
+    with pytest.raises(RuntimeError, match="call flash_attention"):
+        flash_attention_fwd(*a)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    q = torch.zeros(1, 4, 16, 96, device=dev, dtype=torch.bfloat16)     # D = 96
+    lse = torch.zeros(1, 4, 16, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q, q[:, :2], q[:, :2], q, lse, q)
+    q = torch.zeros(1, 4, 16, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, q[:, :2], q[:, :2], q, lse.double(), q)

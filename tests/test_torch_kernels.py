@@ -3,9 +3,11 @@
 On the CPU each wrapper runs its kernel's plain version; the Pallas kernels
 run in interpret mode, as tests/test_kernels.py runs them.  Inputs are drawn
 with numpy and handed to both packages.  Tolerances are the reference's own:
-f32 2e-5, bf16 2e-2.  The CUDA kernels themselves are tested on a GPU by
-tests/test_torch_cuda.py.
+f32 2e-5, bf16 2e-2, and 5e-5 absolute for the f32 gradients of flash
+attention (tests/test_kernels.py's bound).  The CUDA kernels themselves are
+tested on a GPU by tests/test_torch_cuda.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,13 +15,16 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import flash_decode as j_flash_decode
+from repro.kernels.flash_attention import flash_attention as j_flash_attention
 from repro.kernels.flash_attention import flash_attention_fwd as j_flash_attention_fwd
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import MAX_CHUNK, flash_decode, split_plan
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                 flash_attention_fwd)
 
 TOL = {"f32": 2e-5, "bf16": 2e-2}
+GRAD_TOL = 5e-5
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -105,7 +110,13 @@ def test_ops_dispatch_matches_plain_on_cpu():
     o, lse = flash_attention_fwd(qa, ka, ka)
     ro, rlse = tref.flash_attention_ref(qa.contiguous(), ka.contiguous(), ka.contiguous())
     assert torch.equal(o, ro) and torch.equal(lse, rlse)
-    assert ops.launch_counts() == {"flash_attention_fwd": 0, "flash_decode": 0}
+    do = torch.randn(1, 20, 4, 16, generator=g).permute(0, 2, 1, 3)
+    grads = flash_attention_bwd(qa, ka, ka, o, lse, do)
+    ref_grads = tref.flash_attention_bwd_ref(qa.contiguous(), ka.contiguous(),
+                                             ka.contiguous(), o, lse, do.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+    assert ops.launch_counts() == {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                                   "flash_attention_bwd_dkv": 0, "flash_decode": 0}
 
 
 @pytest.mark.parametrize("B,KVH,T,n_sm", [(4, 2, 4096, 132), (1, 1, 40, 132),
@@ -114,3 +125,52 @@ def test_split_plan_covers_cache(B, KVH, T, n_sm):
     chunk, nsplit = split_plan(B, KVH, T, n_sm)
     assert 1 <= chunk <= MAX_CHUNK
     assert (nsplit - 1) * chunk < T <= nsplit * chunk
+
+
+def _grad_inputs(B, H, KVH, Sq, Skv, D, seed=3):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s, np.float32) for s in
+            ((B, H, Sq, D), (B, KVH, Skv, D), (B, KVH, Skv, D), (B, H, Sq, D))]
+
+
+@pytest.mark.parametrize("window", [None, 20])
+@pytest.mark.parametrize("shift", [0, 13])
+@pytest.mark.parametrize("seq_major", [False, True])
+def test_flash_attention_grads_match_pallas(window, shift, seq_major):
+    """Grads of sum(o * w) through the port's FlashAttention Function against
+    JAX's custom_vjp flash_attention (Pallas in interpret mode), also on the
+    strided (B,S,H,D)-memory views the model passes."""
+    B, H, KVH, Sq, D = 2, 4, 2, 48, 32
+    q, k, v, w = _grad_inputs(B, H, KVH, Sq, Sq + shift, D)
+
+    def f_jax(q, k, v):
+        return (j_flash_attention(q, k, v, window, shift, 16, 16, True) * w).sum()
+    jg = jax.grad(f_jax, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+
+    def leaf(x):
+        t = torch.from_numpy(x)
+        if seq_major:                    # (B,S,heads,D) memory viewed as (B,heads,S,D)
+            t = t.transpose(1, 2).contiguous().transpose(1, 2)
+        return t.requires_grad_()
+    tq, tk, tv = leaf(q), leaf(k), leaf(v)
+    (flash_attention(tq, tk, tv, window, shift) * torch.from_numpy(w)).sum().backward()
+    for a, t, name in zip(jg, (tq, tk, tv), "qkv"):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(a), atol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,D", ATTN_SHAPES)
+@pytest.mark.parametrize("window", [None, 24])
+def test_plain_backward_matches_autograd(B, H, KVH, Sq, Skv, D, window):
+    """flash_attention_bwd_ref, written out in the kernels' layouts, against
+    autograd through flash_attention_ref."""
+    q, k, v, do = map(torch.from_numpy, _grad_inputs(B, H, KVH, Sq, Skv, D))
+    shift = Skv - Sq
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = tref.flash_attention_ref(*leaves, window=window, causal_shift=shift)
+    o.backward(do)
+    dq, dk, dv = tref.flash_attention_bwd_ref(q, k, v, o.detach(), lse.detach(), do,
+                                              window=window, causal_shift=shift)
+    for got, t, name in zip((dq, dk, dv), leaves, "qkv"):
+        assert got.dtype == t.dtype and got.shape == t.shape
+        assert (got - t.grad).abs().max().item() < GRAD_TOL, name
