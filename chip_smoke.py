@@ -13,7 +13,12 @@ Phases (any failure exits non-zero and prints no result line):
               bf16 within 2e-2 and f32 within 5e-5 of each call's
               max(1, max|plain grad|)), and time kernel, plain version and
               one PyTorch library call on the same work (the library call is
-              a yardstick only; the port never calls it).
+              a yardstick only; the port never calls it).  The kernels of
+              the recurrent archs too: the forward and decode kernels at
+              D=256 (recurrentgemma's local attention: 10 query heads over
+              one KV head, window 2048; bf16 within 2e-2, f32 within 2e-5),
+              the RG-LRU scan (f32 within 1e-5) and the RWKV-6 WKV (output
+              and final state within 1e-5 of the largest plain value).
 4. serve    — qwen2-1.5b at full published width, random weights from a
               seeded generator, ServingEngine(n_slots=4, cache_len=4096,
               temperature=0) over 8 requests; launch counts must equal
@@ -38,13 +43,28 @@ Phases (any failure exits non-zero and prints no result line):
               (batch 1, seq 512) with the kernels on must match the plain
               versions' leaf by leaf, and the attention weights' gradients
               must be nonzero.
-6. report   — one JSON line of kernels, the nvidia-smi line, and the result
+6. serve recurrentgemma-2b, 7. serve rwkv6-7b — each at full published
+              width, random weights from seed 0, bf16 compute and f32 params,
+              kernels on: ServingEngine(n_slots=4, temperature=0) over 8
+              requests of 32 new tokens (recurrentgemma: cache_len 2048, its
+              window, prompts 64-2000; rwkv6: cache_len 4096, prompts
+              64-3000), with exact launch counts per prefill (18 RG-LRU and
+              8 forward; 32 WKV) and per decode step (8 flash-decode; none),
+              a decode-step and a prefill profile, every kernel held against
+              its plain version on the model's own tensors, and one
+              cache-less ``api.forward`` of 4096 tokens (the scoring path)
+              with exact launch counts, whose f32 logits with the kernels on
+              must match the plain versions' within 1e-3 of the largest
+              logit (bf16, the loose check, as for qwen2).
+8. report   — one JSON line of kernels, the nvidia-smi line, and the result
               line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -80,7 +100,18 @@ F32_LOGIT_TOL = 1e-3
 # their bf16 logits must be no further from the f32 logits than
 # BF16_ERROR_RATIO times the plain bf16 path's distance.
 BF16_ERROR_RATIO = 2.0
+# The recurrences: the reference's bounds (tests/test_kernels.py), the RG-LRU
+# scan absolute, the WKV relative to the largest plain value.
+RGLRU_TOL = 1e-5
+WKV_REL_TOL = 1e-5
+# The kernels on the recurrent archs' own tensors: which error of a call is
+# held to which bound (the bf16 attention kernels as in the qwen2 check).
+IN_MODEL_TOL = {"flash_attention_fwd": ("max_scaled_err", 2e-2),
+                "flash_decode": ("max_scaled_err", 2e-2),
+                "rglru_scan": ("max_abs_err", RGLRU_TOL),
+                "rwkv6_wkv": ("max_rel_err", WKV_REL_TOL)}
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 
 
@@ -358,6 +389,211 @@ def check_flash_decode(gen, dev, timer):
     return row
 
 
+# ------------------------------------------------ kernels of the recurrent slice
+
+def check_flash_attention_d256(gen, dev, timer):
+    """The forward kernel at recurrentgemma's local-attention shapes: H=10
+    query heads over one KV head of D=256, a 2000-token prefill (the window
+    of 2048 does not cut) and a 4096-token scoring forward (it does)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    cases = [  # (dtype, B, H, KVH, S, D, window)
+        (torch.bfloat16, 1, 10, 1, 2000, 256, 2048),
+        (torch.bfloat16, 1, 10, 1, 4096, 256, 2048),
+        (torch.float32, 1, 10, 1, 2000, 256, 2048),
+        (torch.float32, 1, 10, 1, 4096, 256, 2048),
+        (torch.bfloat16, 2, 10, 1, 333, 256, 100),
+    ]
+    worst = 0.0
+    for dtype, B, H, KVH, S, D, window in cases:
+        q, k, v = attn_inputs(gen, dev, dtype, B, H, KVH, S, S, D)
+        o, lse = flash_attention_fwd(q, k, v, window=window)
+        ro, rlse = ref.flash_attention_ref(q, k, v, window=window)
+        torch.cuda.synchronize()
+        e_o = (o.float() - ro.float()).abs().max().item()
+        e_l = (lse - rlse).abs().max().item()
+        ok = e_o <= TOL[dtype] and e_l <= TOL[dtype]
+        print(f"flash_attention_fwd {str(dtype)[6:]} B={B} H={H} KVH={KVH} S={S} D={D} "
+              f"window={window}: max|o|err={e_o:.3e} max|lse|err={e_l:.3e} "
+              f"tol={TOL[dtype]:g} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("flash_attention_fwd at D=256 disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            worst = max(worst, e_o, e_l)
+        del q, k, v, o, lse, ro, rlse
+
+    # timing at the hybrid's serving prefill: one local-attention layer, 2000 tokens
+    B, H, KVH, S, D, window = 1, 10, 1, 2000, 256, 2048
+    q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, H, KVH, S, S, D)
+    kx, vx = k.repeat_interleave(H // KVH, 1), v.repeat_interleave(H // KVH, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {
+        "ms": timer.ms(lambda: flash_attention_fwd(q, k, v, window=window)),
+        "plain_ms": timer.ms(lambda: ref.flash_attention_ref(q, k, v, window=window), iters=3),
+        "library_ms": timer.ms(lambda: sdpa(q, kx, vx, is_causal=True)),
+    }
+    flops = 4.0 * B * H * D * visible_pairs(S, S, window, 0)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * B * H * S
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"flash_attention_fwd work at B={B} H={H} KVH={KVH} S={S} D={D} bf16 window "
+          f"{window}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; kernel {row['ms']:.4f} ms "
+          f"({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain {row['plain_ms']:.4f} ms, sdpa "
+          f"(causal; the window does not cut at S={S}) {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    row["max_abs_err"] = worst
+    return row
+
+
+def check_flash_decode_d256(gen, dev, timer):
+    """The decode kernel at recurrentgemma's shapes: 10 query heads over one KV
+    head of D=256, four lanes on a ring of 2048 slots with a window of 2048."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import flash_decode
+    B, H, KVH, T, D, window = 4, 10, 1, 2048, 256, 2048
+    fills = (2048, 2000, 700, 64)
+    worst = 0.0
+    for dtype, fl in ((torch.bfloat16, fills), (torch.float32, fills),
+                      (torch.bfloat16, (5000, 2049, 3, 1))):       # the ring wrapped
+        q, k, v, pos, qpos = decode_inputs(gen, dev, dtype, B, H, KVH, T, D, fl, window)
+        o = flash_decode(q, k, v, pos, qpos, window=window)
+        r = ref.flash_decode_ref(q, k, v, pos, qpos, window=window)
+        torch.cuda.synchronize()
+        err = (o.float() - r.float()).abs().max().item()
+        ok = err <= TOL[dtype]
+        print(f"flash_decode {str(dtype)[6:]} B={B} H={H} KVH={KVH} T={T} D={D} fills={fl} "
+              f"window={window}: max|o|err={err:.3e} tol={TOL[dtype]:g} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("flash_decode at D=256 disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+
+    q, k, v, pos, qpos = decode_inputs(gen, dev, torch.bfloat16, B, H, KVH, T, D, fills, window)
+    kx, vx = k.repeat_interleave(H // KVH, 1), v.repeat_interleave(H // KVH, 1)
+    mask = ((pos >= 0) & (pos <= qpos[:, None]) & (pos > qpos[:, None] - window))
+    mask = mask[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {
+        "ms": timer.ms(lambda: flash_decode(q, k, v, pos, qpos, window=window), iters=50),
+        "plain_ms": timer.ms(lambda: ref.flash_decode_ref(q, k, v, pos, qpos, window=window),
+                             iters=20),
+        "library_ms": timer.ms(lambda: sdpa(q[:, :, None], kx, vx, attn_mask=mask), iters=50),
+    }
+    n_vis = int(mask.sum().item())
+    flops = 4.0 * H * D * n_vis
+    nbytes = 2 * 2 * KVH * D * n_vis + 4 * n_vis + 2 * 2 * B * H * D + 4 * B
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"flash_decode work at B={B} H={H} KVH={KVH} T={T} D={D} bf16 fills={fills} "
+          f"window={window}: visible {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP; kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+          flush=True)
+    row["max_abs_err"] = worst
+    return row
+
+
+def check_rglru_scan(gen, dev, timer):
+    """The RG-LRU scan against its plain version (f32, atol 1e-5, the
+    reference's bound) at the hybrid's prefill shape and a ragged one; timed
+    at the prefill shape.  No single PyTorch call computes this recurrence,
+    so there is no library time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    worst = 0.0
+    for B, S, W in ((1, 2000, 2560), (3, 17, 32), (2, 4096, 2560)):
+        a = torch.rand(B, S, W, generator=gen, device=dev) * 0.5 + 0.499
+        b = torch.randn(B, S, W, generator=gen, device=dev)
+        h = rglru_scan(a, b)
+        r = ref.rglru_scan_ref(a, b)
+        torch.cuda.synchronize()
+        err = (h - r).abs().max().item()
+        ok = err <= RGLRU_TOL
+        print(f"rglru_scan f32 B={B} S={S} W={W}: max|h|err={err:.3e} "
+              f"max|h|={r.abs().max().item():.3e} tol={RGLRU_TOL:g} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail("rglru_scan disagrees with its plain version")
+        worst = max(worst, err)
+    B, S, W = 1, 2000, 2560
+    a = torch.rand(B, S, W, generator=gen, device=dev) * 0.5 + 0.499
+    b = torch.randn(B, S, W, generator=gen, device=dev)
+    row = {"ms": timer.ms(lambda: rglru_scan(a, b), iters=20),
+           "plain_ms": timer.ms(lambda: ref.rglru_scan_ref(a, b), iters=3),
+           "library_ms": None}
+    nbytes = 3 * 4 * B * S * W                   # a, b read, h written
+    flops = 2.0 * B * S * W                      # one multiply and one add
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
+    print(f"rglru_scan work at B={B} S={S} W={W} f32: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e6:.1f} MFLOP; kernel {row['ms']:.4f} ms "
+          f"({nbytes / row['ms'] / 1e6:.0f} GB/s), plain {row['plain_ms']:.4f} ms, "
+          f"library none, bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    row["max_abs_err"] = worst
+    return row
+
+
+def wkv_inputs(gen, dev, dtype, B, H, S, hs, decay_sd=1.0):
+    """r, k, v (dtype) and w_log (f32) as (B,H,S,hs) views of (B,S,H,hs)
+    memory, as the model passes them; u (H,hs) in dtype.  w_log =
+    -exp(N(0, decay_sd))."""
+    mk = lambda: torch.randn(B, S, H, hs, generator=gen, device=dev).transpose(1, 2)
+    r, k, v = (mk().to(dtype) for _ in range(3))
+    w_log = -torch.exp(decay_sd * mk())
+    u = torch.randn(H, hs, generator=gen, device=dev).to(dtype)
+    return r, k, v, w_log, u
+
+
+def check_rwkv6_wkv(gen, dev, timer):
+    """The WKV kernel against its plain version (the exact sequential scan):
+    output and final state within 1e-5 of the largest plain value (the
+    reference's relative bound), at rwkv6-7b's prefill shape (B=1, H=64,
+    S=3000, hs=64) in bf16 and f32, with decays as strong as the random-weight
+    model's (up to exp(exp(3 sd))) a step, and a ragged (2, 3, 70, 32); timed
+    at the prefill shape in bf16.  No single PyTorch call computes this
+    recurrence, so there is no library time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_kernel import rwkv6_wkv
+    worst_abs, worst_rel = 0.0, 0.0
+    for dtype, B, H, S, hs, sd in ((torch.bfloat16, 1, 64, 3000, 64, 1.0),
+                                   (torch.float32, 1, 64, 3000, 64, 1.0),
+                                   (torch.float32, 1, 64, 3000, 64, 3.0),
+                                   (torch.bfloat16, 2, 3, 70, 32, 1.0),
+                                   (torch.float32, 2, 3, 70, 32, 3.0)):
+        x = wkv_inputs(gen, dev, dtype, B, H, S, hs, sd)
+        o, state = rwkv6_wkv(*x)
+        ro, rstate = ref.rwkv6_wkv_ref(*x)
+        torch.cuda.synchronize()
+        errs = [((a - b).abs().max().item(), b.abs().max().item())
+                for a, b in ((o, ro), (state, rstate))]
+        rels = [e / max(m, 1e-30) for e, m in errs]
+        ok = all(r <= WKV_REL_TOL for r in rels) and all(
+            torch.isfinite(t).all().item() for t in (o, state))
+        print(f"rwkv6_wkv {str(dtype)[6:]} B={B} H={H} S={S} hs={hs} decay sd {sd}: "
+              f"o max|err|={errs[0][0]:.3e} of max {errs[0][1]:.3e} ({rels[0]:.2e}), state "
+              f"max|err|={errs[1][0]:.3e} of max {errs[1][1]:.3e} ({rels[1]:.2e}); tol "
+              f"{WKV_REL_TOL:g} relative {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("rwkv6_wkv disagrees with its plain version")
+        worst_abs = max(worst_abs, errs[0][0], errs[1][0])
+        worst_rel = max(worst_rel, *rels)
+        del x, o, state, ro, rstate
+    B, H, S, hs = 1, 64, 3000, 64
+    x = wkv_inputs(gen, dev, torch.bfloat16, B, H, S, hs)
+    row = {"ms": timer.ms(lambda: rwkv6_wkv(*x), iters=10),
+           "plain_ms": timer.ms(lambda: ref.rwkv6_wkv_ref(*x), iters=2),
+           "library_ms": None}
+    n = B * H * S * hs
+    nbytes = 3 * 2 * n + 4 * n + 2 * H * hs + 4 * n + 4 * B * H * hs * hs
+    flops = 4.0 * B * H * S * hs * hs            # per token and head: r S and k v^T into S
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
+    print(f"rwkv6_wkv work at B={B} H={H} S={S} hs={hs} bf16 r/k/v, f32 w_log/o/state: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP (f32); kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    row["max_abs_err"] = worst_abs
+    row["max_rel_err"] = worst_rel
+    return row
+
+
 # ---------------------------------------------------------------- serve
 
 def teacher_forced(api, cfg, params, policy, req, dev, n_steps=8):
@@ -381,6 +617,7 @@ def teacher_forced(api, cfg, params, policy, req, dev, n_steps=8):
 PROFILE_KINDS = (
     ("attention kernels", ("fwd_bf16", "fwd_f32", "dq_bf16", "dq_f32", "dkv_bf16",
                            "dkv_f32", "decode_partial", "decode_combine")),
+    ("recurrence kernels", ("rglru_scan_kernel", "wkv_kernel")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("copy/fill", ("Memcpy", "Memset", "copy_", "fill")),
     ("elementwise/reduce", ("elementwise", "reduce", "softmax", "Reduce")),
@@ -846,6 +1083,269 @@ def train(dev):
     return counts, in_model, f32_err
 
 
+# ------------------------------------------------ serve and score the recurrent archs
+
+# kernel launches per prefill (and per scoring forward) and per decode step of
+# the two archs of the recurrent slice; every other kernel launches no time
+RECURRENT_LAUNCHES = {
+    # 26 layers: 8 units of (rec, rec, attn) and a (rec, rec) tail
+    "recurrentgemma-2b": ({"rglru_scan": 18, "flash_attention_fwd": 8}, {"flash_decode": 8}),
+    "rwkv6-7b": ({"rwkv6_wkv": 32}, {}),
+}
+
+
+def kernel_sites():
+    """(module, name, plain version, outputs to compare) of every kernel
+    wrapper the recurrent archs call, by the name the model looks it up
+    under at each call."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models import rglru, rwkv6
+    return [(fa_mod, "flash_attention_fwd",
+             lambda q, k, v, **kw: ref.flash_attention_ref(q, k, v, **kw), lambda x: x[:1]),
+            (attn, "flash_decode", ref.flash_decode_ref, lambda x: (x,)),
+            (rglru, "rglru_scan", ref.rglru_scan_ref, lambda x: (x,)),
+            (rwkv6, "rwkv6_wkv", ref.rwkv6_wkv_ref, lambda x: x)]
+
+
+@contextlib.contextmanager
+def swapped(make):
+    """Every kernel site's wrapper replaced by ``make(name, wrapper, plain,
+    outputs)`` for the duration."""
+    sites = kernel_sites()
+    saved = [(m, n, getattr(m, n)) for m, n, _, _ in sites]
+    try:
+        for m, n, plain, outputs in sites:
+            setattr(m, n, make(n, getattr(m, n), plain, outputs))
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def plain_kernels():
+    """The kernels' plain versions on the card in place of the kernels, the
+    same data flow otherwise."""
+    return swapped(lambda name, real, plain, outputs: plain)
+
+
+def checked_kernels(stats):
+    """Every kernel wrapper held against its plain version on the very
+    tensors the model hands it (each call; the check's plain calls launch
+    nothing).  ``stats[name]`` collects, per wrapper, the calls and the
+    largest absolute error, |plain|, error over max(1, max|plain|) and error
+    over max|plain|."""
+    def record(name, got, want):
+        st = stats.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "max_abs_value": 0.0,
+                                     "max_scaled_err": 0.0, "max_rel_err": 0.0})
+        for a, b in zip(got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            value = b.float().abs().max().item()
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            st["max_abs_value"] = max(st["max_abs_value"], value)
+            st["max_scaled_err"] = max(st["max_scaled_err"], err / max(1.0, value))
+            st["max_rel_err"] = max(st["max_rel_err"], err / max(value, 1e-30))
+        st["calls"] += 1
+
+    def make(name, real, plain, outputs):
+        def checked(*args, **kw):
+            got = real(*args, **kw)
+            record(name, outputs(got), outputs(plain(*args, **kw)))
+            return got
+        checked.launches = 0          # the module-level wrapper keeps its own count
+        return checked
+    return swapped(make)
+
+
+def serve_recurrent(dev, arch, cache_len, max_prompt):
+    """One recurrent arch at full published width with random weights from
+    seed 0, bf16 compute and f32 params, kernels on, served by
+    ServingEngine(n_slots=4, cache_len, temperature=0) over 8 requests with
+    prompt lengths drawn with numpy seed 0 from 64..max_prompt (one of exactly
+    max_prompt) and 32 new tokens each.  Launch counts must be exact per
+    prefill and per decode step.  Then a decode-step and a prefill profile,
+    and every kernel held against its plain version on the model's own
+    tensors for four prefills and one 4-lane decode step.  Returns the f32
+    params, the engine's cast params, the launch counts and the in-model
+    errors."""
+    from repro_torch.configs.base import RunPolicy, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = get_config(arch)
+    policy = RunPolicy(use_pallas=True)
+    per_prefill, per_decode = RECURRENT_LAUNCHES[arch]
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"{arch}: {api.n_params(cfg) / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, max_prompt + 1, size=8)
+    lens[int(rng.integers(0, 8))] = max_prompt
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+
+    eng = ServingEngine(cfg, policy, params, n_slots=4, cache_len=cache_len,
+                        temperature=0.0, device=dev)
+    eng.add_request(Request(rid=-1, prompt=prompts[0][:64], max_new_tokens=2))
+    eng.run()                                    # warm-up, off the record
+    eng.completed.clear()
+    eng.stats = {k: 0 for k in eng.stats}
+    prefill_ms, decode_ms = [], []
+
+    def timed(fn, sink):
+        def wrapped(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapped
+
+    prefill, decode = eng.prefill, eng.decode
+    eng.prefill, eng.decode = timed(prefill, prefill_ms), timed(decode, decode_ms)
+    for i, p in enumerate(prompts):
+        eng.add_request(Request(rid=i, prompt=p, max_new_tokens=32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = list(eng.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eng.prefill, eng.decode = prefill, decode
+    st = dict(eng.stats)
+    print(f"{arch} serve: {len(done)} requests, stats {st}, launches {counts}", flush=True)
+    if len(done) != len(prompts) or not all(r.done and len(r.out) == 32 for r in done):
+        fail(f"{arch}: not every request completed with 32 tokens")
+    want = {n: per_prefill.get(n, 0) * st["prefills"] + per_decode.get(n, 0)
+            * st["decode_steps"] for n in counts}
+    if counts != want:
+        fail(f"{arch} serve launches {counts} != expected {want} ({per_prefill} per "
+             f"prefill, {per_decode} per decode step)")
+    tps = st["tokens_out"] / wall
+    print(f"{arch} serve: prompt lengths {[int(n) for n in lens]}; prefill ms per request "
+          f"{[round(x, 3) for x in prefill_ms]} (mean {np.mean(prefill_ms):.3f}); decode ms "
+          f"per step median {np.median(decode_ms):.3f} p90 {np.percentile(decode_ms, 90):.3f} "
+          f"over {len(decode_ms)} steps; {st['tokens_out']} tokens in {wall:.3f} s = "
+          f"{tps:.1f} tokens/s; peak memory {peak_gb:.2f} GB", flush=True)
+
+    profile_decode(eng, prompts, Request)
+    longest = int(np.argmax(lens))
+    prompt = torch.as_tensor(prompts[longest], device=dev)[None, :]
+    with torch.inference_mode():
+        print_profile(f"{arch} prefill profile (one {len(prompts[longest])}-token prompt)",
+                      *device_profile(lambda: eng.prefill(eng.params, {"tokens": prompt}), 1))
+
+    stats = {}
+    pick = [longest] + [i for i in range(len(prompts)) if i != longest][:eng.n_slots - 1]
+    for j, i in enumerate(pick):
+        eng.add_request(Request(rid=200 + j, prompt=prompts[i], max_new_tokens=4))
+    with checked_kernels(stats):
+        eng.step()                               # four prefills, one 4-lane decode step
+        torch.cuda.synchronize()
+    eng.run()
+    print(f"{arch} in-model kernels vs plain versions ({[int(lens[i]) for i in pick]} "
+          f"prefills, one 4-lane decode step, every layer): {stats}", flush=True)
+    names = set(per_prefill) | set(per_decode)
+    if set(stats) != names:
+        fail(f"{arch}: in-model check saw calls of {sorted(stats)}, expected {sorted(names)}")
+    for name, s in stats.items():
+        key, tol = IN_MODEL_TOL[name]
+        if not s[key] <= tol:
+            fail(f"{arch}: {name} in the model's layout disagrees with its plain version: "
+                 f"{key} {s[key]:.3e} > {tol:g}; {s}")
+    cparams = eng.params
+    del eng
+    numbers = {"prefill_ms_mean": float(np.mean(prefill_ms)),
+               "decode_ms_median": float(np.median(decode_ms)), "tokens_per_s": tps,
+               "peak_gb": peak_gb}
+    return params, cparams, counts, stats, numbers
+
+
+def score(dev, arch, params, cparams, seq=4096):
+    """One cache-less ``api.forward`` of batch 1 at ``seq`` tokens (kernels
+    on, bf16), with exact launch counts; then its logits, kernels on, against
+    the plain versions on the card: f32 within F32_LOGIT_TOL of the largest
+    logit, and bf16 (the loose check) no further from the f32 plain logits
+    than BF16_ERROR_RATIO times the plain bf16 path.  For recurrentgemma the
+    plain path is the model without the kernels (associative scan, blocked
+    attention); for rwkv6 it is the kernels' plain versions (the exact
+    sequential WKV), because the model's own plain WKV forms, the JAX
+    package's, overflow f32 at these random weights' decays (ROADMAP queue
+    3)."""
+    from repro_torch.configs.base import RunPolicy, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    cfg = get_config(arch)
+    per_call, _ = RECURRENT_LAUNCHES[arch]
+    want = {name: per_call.get(name, 0) for name in ops.launch_counts()}
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, seq)).astype(np.int32)).to(dev)
+    batch = {"tokens": tokens}
+
+    def run(p, pol, plain=False):
+        with torch.inference_mode():
+            if plain and arch == "rwkv6-7b":
+                with plain_kernels():
+                    return api.forward(p, batch, cfg, dataclasses.replace(pol, use_pallas=True))[0]
+            return api.forward(p, batch, cfg, pol)[0]
+
+    kernels16 = RunPolicy(use_pallas=True)
+    plain16 = RunPolicy(use_pallas=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits16 = run(cparams, kernels16)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    print(f"{arch} score: forward of 1 x {seq} tokens, bf16, kernels on: {ms:.3f} ms "
+          f"(first call), launches {counts}", flush=True)
+    if counts != want:
+        fail(f"{arch} score launches {counts} != expected {want}")
+    if logits16.shape != (1, seq, cfg.vocab_size) or not torch.isfinite(logits16).all():
+        fail(f"{arch} score: bf16 logits of shape {tuple(logits16.shape)} or not finite")
+    plain_logits16 = run(cparams, plain16, plain=True)
+    ref32 = run(params, RunPolicy(dtype="f32", use_pallas=False), plain=True)
+    got32 = run(params, RunPolicy(dtype="f32", use_pallas=True))
+    for name, x in (("plain bf16", plain_logits16), ("plain f32", ref32), ("kernels f32", got32)):
+        if not torch.isfinite(x).all():
+            fail(f"{arch} score: {name} logits not finite")
+    scale = max(1.0, ref32.abs().max().item())
+    dist = {name: (x.float() - ref32).abs().max().item() for name, x in
+            (("kernels f32", got32), ("kernels bf16", logits16), ("plain bf16", plain_logits16))}
+    agree = {name: (x.argmax(-1) == ref32.argmax(-1)).float().mean().item() for name, x in
+             (("kernels f32", got32), ("kernels bf16", logits16), ("plain bf16", plain_logits16))}
+    print(f"{arch} score: max|logit| {scale:.4f}; max|logit - plain f32| "
+          f"{ {k: round(v, 6) for k, v in dist.items()} }; argmax agreement with plain f32 "
+          f"{ {k: round(v, 4) for k, v in agree.items()} }", flush=True)
+    if dist["kernels f32"] > F32_LOGIT_TOL * scale:
+        fail(f"{arch}: f32 kernels-on logits differ from the plain versions by "
+             f"{dist['kernels f32']:.3e} > {F32_LOGIT_TOL} x {scale:.3f}")
+    if dist["kernels bf16"] > BF16_ERROR_RATIO * max(dist["plain bf16"], 1e-6):
+        fail(f"{arch}: bf16 kernels-on logits are {dist['kernels bf16']:.4f} from the f32 "
+             f"ones, more than {BF16_ERROR_RATIO} x the plain bf16 path's "
+             f"{dist['plain bf16']:.4f}")
+    return counts, dist["kernels f32"] / scale
+
+
+def recurrent(dev, arch, cache_len, max_prompt):
+    """Serve, then score, one recurrent arch; frees the model after."""
+    params, cparams, counts, in_model, numbers = serve_recurrent(dev, arch, cache_len,
+                                                                 max_prompt)
+    score_counts, f32_err = score(dev, arch, params, cparams)
+    del params, cparams
+    torch.cuda.empty_cache()
+    return {"serve_launches": counts, "score_launches": score_counts, "in_model": in_model,
+            "f32_logit_err": f32_err, **numbers}
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -888,6 +1388,10 @@ def main():
     fa = check_flash_attention(gen, dev, timer)
     fd = check_flash_decode(gen, dev, timer)
     bwd = check_flash_attention_bwd(gen, dev, timer)
+    fa["d256"] = check_flash_attention_d256(gen, dev, timer)
+    fd["d256"] = check_flash_decode_d256(gen, dev, timer)
+    rg_row = check_rglru_scan(gen, dev, timer)
+    wkv_row = check_rwkv6_wkv(gen, dev, timer)
     del timer
     torch.cuda.empty_cache()
 
@@ -902,6 +1406,7 @@ def main():
 
     phase("train")
     train_counts, bwd_in_model, f32_grad_err = train(dev)
+    torch.cuda.empty_cache()
     fa["train_launches"] = train_counts["flash_attention_fwd"]
     for name, grads in (("flash_attention_bwd_dq", ("dq",)),
                         ("flash_attention_bwd_dkv", ("dk", "dv"))):
@@ -910,6 +1415,25 @@ def main():
         row["in_model_max_scaled_err"] = max(bwd_in_model[g]["max_scaled_err"] for g in grads)
         row["in_model_max_rel_err"] = max(bwd_in_model[g]["max_rel_err"] for g in grads)
         row["f32_step_grad_rel_err"] = f32_grad_err
+
+    phase("serve recurrentgemma-2b")
+    # the reference's engine takes no cache longer than the window (ROADMAP queue 3)
+    hybrid = recurrent(dev, "recurrentgemma-2b", cache_len=2048, max_prompt=2000)
+    phase("serve rwkv6-7b")
+    ssm = recurrent(dev, "rwkv6-7b", cache_len=4096, max_prompt=3000)
+    for name, row, runs in (("flash_attention_fwd", fa, (("recurrentgemma", hybrid),)),
+                            ("flash_decode", fd, (("recurrentgemma", hybrid),)),
+                            ("rglru_scan", rg_row, (("recurrentgemma", hybrid),)),
+                            ("rwkv6_wkv", wkv_row, (("rwkv6", ssm),))):
+        for tag, run in runs:
+            row[f"{tag}_serve_launches"] = run["serve_launches"][name]
+            row[f"{tag}_score_launches"] = run["score_launches"][name]
+            row[f"{tag}_in_model"] = run["in_model"][name]
+    for tag, run in (("recurrentgemma", hybrid), ("rwkv6", ssm)):
+        print(f"{tag}: prefill ms mean {run['prefill_ms_mean']:.3f}, decode ms median "
+              f"{run['decode_ms_median']:.3f}, {run['tokens_per_s']:.1f} tokens/s, peak "
+              f"{run['peak_gb']:.2f} GB; f32 scoring logits, kernels vs plain, "
+              f"{run['f32_logit_err']:.3e} of the largest logit", flush=True)
 
     phase("report")
     kernels = [
@@ -931,10 +1455,22 @@ def main():
              replaces="src/repro/kernels/flash_attention.py:172",
              launches=train_counts["flash_attention_bwd_dkv"],
              tolerance=GRAD_TOL[torch.bfloat16], **bwd["flash_attention_bwd_dkv"]),
+        dict(name="rglru_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan.py:19",
+             launches=hybrid["serve_launches"]["rglru_scan"], tolerance=RGLRU_TOL, **rg_row),
+        dict(name="rwkv6_wkv", route="cuda",
+             source="src/repro_torch/kernels/csrc/rwkv6.cu",
+             replaces="src/repro/kernels/rwkv6_kernel.py:28",
+             launches=ssm["serve_launches"]["rwkv6_wkv"], tolerance=WKV_REL_TOL, **wkv_row),
     ]
     for kr in kernels:
-        if not all(math.isfinite(kr[k]) for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
+        rows = [kr] + ([kr["d256"]] if "d256" in kr else [])
+        if not all(math.isfinite(r[k]) for r in rows
+                   for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite numbers for {kr['name']}")
+        if kr["launches"] <= 0:
+            fail(f"{kr['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

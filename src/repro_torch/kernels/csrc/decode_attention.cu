@@ -17,6 +17,10 @@
 // inside one core and keeps that state in VMEM; blocks on the GPU run in no
 // order, hence the second pass.
 //
+// Head dims 64, 128 and 256.  At D = 256 a split's K and V rows take twice
+// the shared memory: bf16 keeps splits of up to 128 slots (156 KB at MG 16),
+// f32 up to 64 (152 KB); the wrapper plans the split accordingly.
+//
 // Layouts: q (B,H,D); k/v addressed as (B,KVH,T,D) by (batch, head, slot)
 // strides in elements with D contiguous, so the model's (B,T,KVH,D) cache is
 // read in place; pos (B,T) i32 (-1 = empty slot), row stride pos_sb; qpos (B,)
@@ -252,9 +256,14 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   if (dtype == 1) {
     if (D == 64) return small ? run<__nv_bfloat16, 64, 8>(a, st) : run<__nv_bfloat16, 64, MAXG>(a, st);
     if (D == 128) return small ? run<__nv_bfloat16, 128, 8>(a, st) : run<__nv_bfloat16, 128, MAXG>(a, st);
+    if (D == 256) return small ? run<__nv_bfloat16, 256, 8>(a, st) : run<__nv_bfloat16, 256, MAXG>(a, st);
   } else if (dtype == 0) {
     if (D == 64) return small ? run<float, 64, 8>(a, st) : run<float, 64, MAXG>(a, st);
     if (D == 128) return small ? run<float, 128, 8>(a, st) : run<float, 128, MAXG>(a, st);
+    if (D == 256) {
+      if (chunk > CHUNK / 2) return 1000;
+      return small ? run<float, 256, 8>(a, st) : run<float, 256, MAXG>(a, st);
+    }
   }
   return 1000;
 }

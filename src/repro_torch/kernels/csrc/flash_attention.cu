@@ -18,6 +18,12 @@
 // it keeps full f32 accuracy (the tensor cores would give TF32).  wgmma, TMA
 // and warp specialisation are later work.
 //
+// Head dims 64, 128 and 256 (recurrentgemma's local attention).  At D = 256 a
+// warp's 16 x D f32 accumulator alone takes 128 registers a thread, so the Q
+// fragments (another 64) no longer fit beside it: the Q tile is staged in
+// shared memory with the first K/V tile and read back with ldmatrix at each
+// k step (shared memory then holds Q and two K/V buffers, 169 KB).
+//
 // Layouts: q (B,H,Sq,D), k/v (B,KVH,Skv,D), o (B,H,Sq,D), each addressed by
 // (batch, head, row) strides in elements with D contiguous; lse (B,H,Sq)
 // contiguous.  Query head h reads KV head h / G.  Query row i sits at
@@ -46,9 +52,11 @@ __global__ void __launch_bounds__(128) fwd_bf16(Args a) {
   constexpr int LD = D + 8;                      // padded smem row (bf16): 16-byte
                                                  // aligned, conflict-free ldmatrix
   constexpr int TILE = BK * LD;                  // elements per K or V tile
+  constexpr bool Q_SMEM = D > 128;               // Q read from shared memory
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [2][BK][LD]
   __nv_bfloat16* Vs = Ks + 2 * TILE;                                 // [2][BK][LD]
+  __nv_bfloat16* Qs = Vs + 2 * TILE;             // [BQ][LD], Q_SMEM only
 
   const int nq = (a.Sq + BQ - 1) / BQ;
   const int qt = nq - 1 - blockIdx.x;            // heaviest tiles first
@@ -63,17 +71,30 @@ __global__ void __launch_bounds__(128) fwd_bf16(Args a) {
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + kh * a.v_sh;
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  // Q fragments for all D/16 k-steps, loaded once.
-  uint32_t qa[D / 16][4];
+  // Q fragments for all D/16 k-steps, loaded once (up to D = 128).
+  uint32_t qa[Q_SMEM ? 1 : D / 16][4];
+  if constexpr (!Q_SMEM) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    int c = kk * 16 + 2 * t;
-    const uint32_t z = 0;
-    qa[kk][0] = r0 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r0 * a.q_ss + c) : z;
-    qa[kk][1] = r1 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r1 * a.q_ss + c) : z;
-    qa[kk][2] = r0 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r0 * a.q_ss + c + 8) : z;
-    qa[kk][3] = r1 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r1 * a.q_ss + c + 8) : z;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      int c = kk * 16 + 2 * t;
+      const uint32_t z = 0;
+      qa[kk][0] = r0 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r0 * a.q_ss + c) : z;
+      qa[kk][1] = r1 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r1 * a.q_ss + c) : z;
+      qa[kk][2] = r0 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r0 * a.q_ss + c + 8) : z;
+      qa[kk][3] = r1 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r1 * a.q_ss + c + 8) : z;
+    }
   }
+  // D > 128: the Q tile joins the first K/V tile's copy group; rows beyond
+  // Sq are zero-filled
+  auto load_q = [&]() {
+    constexpr int CH = D / 8;
+    for (int i = tid; i < BQ * CH; i += 128) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool in = q0 + r < a.Sq;
+      const long long row = in ? q0 + r : 0;
+      cp_async16(Qs + r * LD + c, qp + row * a.q_ss + c, in ? 16 : 0);
+    }
+  };
 
   float acc[D / 8][4];
 #pragma unroll
@@ -97,7 +118,10 @@ __global__ void __launch_bounds__(128) fwd_bf16(Args a) {
 
   int lo, hi;
   kv_tile_range(a, q0, lo, hi);
-  if (lo < hi) load_tile(lo, 0);
+  if (lo < hi) {
+    if constexpr (Q_SMEM) load_q();
+    load_tile(lo, 0);
+  }
   for (int kb = lo; kb < hi; ++kb) {
     const int k0 = kb * BK, buf = (kb - lo) & 1;
     if (kb + 1 < hi) {
@@ -116,14 +140,30 @@ __global__ void __launch_bounds__(128) fwd_bf16(Args a) {
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     const int mi = lane >> 3, mr = lane & 7;     // ldmatrix: matrix, row
-#pragma unroll
-    for (int j = 0; j < BK / 8; j += 2) {
+    if constexpr (Q_SMEM) {
+      // one ldmatrix.x4 gives this warp's A fragment of one k16 step
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bk[4];                          // (n-tile j: b0, b1), (j+1: b0, b1)
-        ldmatrix_x4(bk, Kt + (8 * j + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
-        mma_bf16(s[j], qa[kk], bk[0], bk[1]);
-        mma_bf16(s[j + 1], qa[kk], bk[2], bk[3]);
+        uint32_t qf[4];
+        ldmatrix_x4(qf, Qs + (warp * 16 + (mi & 1) * 8 + mr) * LD + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+        for (int j = 0; j < BK / 8; j += 2) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, Kt + (8 * j + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
+          mma_bf16(s[j], qf, bk[0], bk[1]);
+          mma_bf16(s[j + 1], qf, bk[2], bk[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 8; j += 2) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t bk[4];                        // (n-tile j: b0, b1), (j+1: b0, b1)
+          ldmatrix_x4(bk, Kt + (8 * j + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
+          mma_bf16(s[j], qa[kk], bk[0], bk[1]);
+          mma_bf16(s[j + 1], qa[kk], bk[2], bk[3]);
+        }
       }
     }
     // scale, mask, row max
@@ -346,13 +386,15 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, floa
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    // two buffers each of a K and a V tile
+    // two buffers each of a K and a V tile (and, at D = 256, the Q tile)
     if (D == 64) return launch(fwd_bf16<64>, grid, 128, 4 * BK * (64 + 8) * 2, st, a);
     if (D == 128) return launch(fwd_bf16<128>, grid, 128, 4 * BK * (128 + 8) * 2, st, a);
+    if (D == 256) return launch(fwd_bf16<256>, grid, 128, (4 * BK + BQ) * (256 + 8) * 2, st, a);
   } else if (dtype == 0) {
     auto smem = [](int d) { return (size_t)(BQ * (d + 1) + d * (BK + 1) + BK * d + BQ * (BK + 1)) * 4; };
     if (D == 64) return launch(fwd_f32<64>, grid, 256, smem(64), st, a);
     if (D == 128) return launch(fwd_f32<128>, grid, 256, smem(128), st, a);
+    if (D == 256) return launch(fwd_f32<256>, grid, 256, smem(256), st, a);
   }
   return 1000;
 }

@@ -15,9 +15,15 @@ from . import build
 from .ref import flash_decode_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16      # query heads per KV head (MAXG in the source)
 MAX_CHUNK = 128     # cache slots per split (CHUNK in the source)
+
+
+def max_chunk(D, element_size):
+    """Most cache slots per split whose K and V rows fit in shared memory:
+    half of MAX_CHUNK for f32 at D = 256."""
+    return MAX_CHUNK // 2 if D * element_size > 512 else MAX_CHUNK
 
 
 def _bind():
@@ -30,10 +36,11 @@ def _bind():
     return fn
 
 
-def split_plan(B, KVH, T, n_sm):
-    """(chunk, nsplit): split the cache so that about two blocks run per SM."""
+def split_plan(B, KVH, T, n_sm, chunk_cap=MAX_CHUNK):
+    """(chunk, nsplit): split the cache so that about two blocks run per SM,
+    with at most ``chunk_cap`` slots a split."""
     target = max(1, -(-2 * n_sm // (B * KVH)))
-    chunk = min(MAX_CHUNK, max(32, -(-T // target)))
+    chunk = min(chunk_cap, max(32, -(-T // target)))
     return chunk, -(-T // chunk)
 
 
@@ -77,7 +84,7 @@ def flash_decode(q, k, v, pos, qpos, *, window=None):
                              f"strides that are multiples of {vec} and 16-byte "
                              f"aligned data; strides {t.stride()}")
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    chunk, nsplit = split_plan(B, KVH, T, n_sm)
+    chunk, nsplit = split_plan(B, KVH, T, n_sm, max_chunk(D, q.element_size()))
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     m_part = torch.empty((B * H * nsplit,), dtype=torch.float32, device=q.device)
     l_part = torch.empty_like(m_part)

@@ -21,7 +21,8 @@ from .ref import (flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
                   flash_attention_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+FWD_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -42,9 +43,10 @@ def _check_strided(name, t, align_elems):
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
-def _check_inputs(fn, q, k, v, window, **same_as_q):
+def _check_inputs(fn, q, k, v, window, head_dims, **same_as_q):
     """Validate what every kernel here takes; returns (B, H, KVH, Sq, Skv, D).
-    ``same_as_q`` names further (B,H,Sq,D) tensors (o, do)."""
+    ``head_dims`` are the head dims the kernel is built for; ``same_as_q``
+    names further (B,H,Sq,D) tensors (o, do)."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     B, H, Sq, D = q.shape
@@ -54,8 +56,8 @@ def _check_inputs(fn, q, k, v, window, **same_as_q):
     KVH, Skv = k.shape[1], k.shape[2]
     if H % KVH:
         raise ValueError(f"{fn}: H={H} not a multiple of KVH={KVH}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {D} not in {_HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"{fn}: head dim {D} not in {head_dims}")
     tensors = {"q": q, "k": k, "v": v, **same_as_q}
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors.values()):
         raise ValueError(f"{fn}: dtypes {[str(t.dtype) for t in tensors.values()]}")
@@ -107,7 +109,8 @@ def flash_attention_fwd(q, k, v, *, window=None, causal_shift=0):
                            "kernel's output would carry none; call flash_attention")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window, causal_shift=causal_shift)
-    B, H, KVH, Sq, Skv, D = _check_inputs("flash_attention_fwd", q, k, v, window)
+    B, H, KVH, Sq, Skv, D = _check_inputs("flash_attention_fwd", q, k, v, window,
+                                           FWD_HEAD_DIMS)
     o = _heads_major(B, Sq, H, D, q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _run(_bind("flash_attention", "fa_fwd", 5, 4), "flash_attention_fwd",
@@ -130,7 +133,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, window=None, causal_shift=0):
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, o, lse, do, window, causal_shift)
     fn = "flash_attention_bwd_dq"
-    B, H, KVH, Sq, Skv, D = _check_inputs(fn, q, k, v, window, o=o, do=do)
+    B, H, KVH, Sq, Skv, D = _check_inputs(fn, q, k, v, window, BWD_HEAD_DIMS, o=o, do=do)
     _check_rowstat(fn, "lse", lse, q)
     dq = _heads_major(B, Sq, H, D, q)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -156,7 +159,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, window=None, causal_shif
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window, causal_shift)
     fn = "flash_attention_bwd_dkv"
-    B, H, KVH, Sq, Skv, D = _check_inputs(fn, q, k, v, window, do=do)
+    B, H, KVH, Sq, Skv, D = _check_inputs(fn, q, k, v, window, BWD_HEAD_DIMS, do=do)
     _check_rowstat(fn, "lse", lse, q)
     _check_rowstat(fn, "delta", delta, q)
     dk, dv = _heads_major(B, Skv, KVH, D, k), _heads_major(B, Skv, KVH, D, v)

@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the attention kernels (the correctness ground truth).
+"""Plain PyTorch versions of the kernels (the correctness ground truth).
 
 They take the kernels' layouts: q (B,H,Sq,D) and k, v (B,KVH,Skv,D) for
-attention; q (B,H,D), k, v (B,KVH,T,D), pos (B,T) and qpos (B,) for decode.
+attention; q (B,H,D), k, v (B,KVH,T,D), pos (B,T) and qpos (B,) for decode;
+a, b (B,S,W) for the RG-LRU scan; r, k, v, w_log (B,H,S,hs) and u (H,hs) for
+the RWKV-6 WKV.
 Query head h reads KV head h // G (G = H // KVH).  Scores, softmax and the
 PV product are computed in f32 from the inputs; the output is cast back to
 the input dtype.  The attention backward is written out in the same layouts
@@ -112,3 +114,34 @@ def flash_decode_ref(q, k, v, pos, qpos, window=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,bktd->bkgd", p, v.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def rglru_scan_ref(a, b):
+    """Sequential linear recurrence h_t = a_t h_{t-1} + b_t from h_{-1} = 0.
+    a, b: (B,S,W) f32 -> h (B,S,W) f32."""
+    h = torch.zeros_like(a[:, 0])
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out
+
+
+def rwkv6_wkv_ref(r, k, v, w_log, u):
+    """Exact sequential RWKV-6 WKV.  r, k, v, w_log: (B,H,S,hs); u: (H,hs).
+
+    Per head, with the (hs, hs) state S (k-major) from zero:
+    o_t = r_t (S + diag(u) k_t v_t^T),  S <- diag(exp(w_log_t)) S + k_t v_t^T.
+    Returns (o (B,H,S,hs) f32, the state after the last token (B,H,hs,hs) f32).
+    """
+    B, H, S, hs = r.shape
+    rf, kf, vf = r.float(), k.float(), v.float()
+    wf = torch.exp(w_log.float())
+    uf = u.float()[None, :, :, None]
+    state = torch.zeros((B, H, hs, hs), dtype=torch.float32, device=r.device)
+    o = torch.empty((B, H, S, hs), dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        o[:, :, t] = torch.einsum("bhk,bhkv->bhv", rf[:, :, t], state + uf * kv)
+        state = wf[:, :, t, :, None] * state + kv
+    return o, state

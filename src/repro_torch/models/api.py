@@ -74,7 +74,9 @@ def from_numpy_params(cfg: ModelConfig, tree, device="cuda"):
 
 def init_state(cfg: ModelConfig, batch: int, cache_len: int,
                compute_dtype=torch.bfloat16, device="cuda"):
-    """Empty decode state: zero K/V, pos -1 (every slot empty)."""
+    """Empty decode state: zero K/V with pos -1 (every slot empty) for the
+    attention blocks; zero recurrent state for the others (``h`` and ``wkv``
+    in f32, ``conv``, ``tm_x`` and ``cm_x`` in ``compute_dtype``)."""
     dev = resolve_device(device)
 
     def make(leaf):

@@ -5,6 +5,8 @@ Execution paths (numerically equivalent where applicable):
 * ``plain``    — materialises (Sq, Skv) scores.
 * ``blocked``  — online-softmax loop over KV blocks, O(S) live memory; used
                  for long prefill without the kernels.
+* ``local``    — chunked sliding-window attention (self + previous chunk),
+                 for windowed archs when S > 2 * window.
 * ``pallas``   — the flash-attention CUDA kernels, forward and backward,
                  through their autograd Function (the name of the RunPolicy
                  switch, ``use_pallas``, is kept from the JAX package).
@@ -22,7 +24,7 @@ import torch
 
 from ..kernels.decode_attention import flash_decode
 from ..kernels.flash_attention import flash_attention
-from .layers import apply_rope
+from .layers import apply_rope, proj_heads
 from .module import ParamSpec
 
 NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
@@ -42,15 +44,9 @@ def attn_specs(d_model: int, n_heads: int, n_kv: int, d_head: int, bias: bool):
     return s
 
 
-def _proj(x, w):
-    """(B,S,D) x (D,h,k) -> (B,S,h,k) as one matmul."""
-    D, h, k = w.shape
-    return (x @ w.reshape(D, h * k)).unflatten(-1, (h, k))
-
-
 def qkv_proj(p, x, n_heads, n_kv, d_head, positions, rope_theta, use_rope=True):
     """x: (B,S,D) -> q (B,S,KV,G,dh), k,v (B,S,KV,dh); bias, then RoPE."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = proj_heads(x, p["wq"]), proj_heads(x, p["wk"]), proj_heads(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -112,6 +108,40 @@ def blocked_attention(q, k, v, positions_q, positions_kv, window=None, block=Non
     # masked, so a block-aligned Skv and a ragged one give the same result
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(v.dtype)                  # (B,Sq,KV,G,dh)
+
+
+def local_chunk_attention(q, k, v, positions_q, positions_kv, window):
+    """Exact sliding-window attention over each window-long chunk and the one
+    before it: O(S * 2W * d) instead of O(S^2 * d)."""
+    B, S, KV, G, dh = q.shape
+    C = window
+    nc = -(-S // C)
+    pad = nc * C - S
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        positions_q = torch.nn.functional.pad(positions_q, (0, pad), value=-(2**30))
+        positions_kv = torch.nn.functional.pad(positions_kv, (0, pad), value=2**30)
+    qc = q.reshape(B, nc, C, KV, G, dh)
+    kc = k.reshape(B, nc, C, KV, dh)
+    vc = v.reshape(B, nc, C, KV, dh)
+    pqc = positions_q.reshape(B, nc, C)
+    pkc = positions_kv.reshape(B, nc, C)
+    # the previous chunk (zeros, never visible, for the first)
+    kp = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
+    vp = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    pkp = torch.cat([torch.full_like(pkc[:, :1], 2**30), pkc[:, :-1]], dim=1)
+    kk = torch.cat([kp, kc], dim=2)                 # (B,nc,2C,KV,dh)
+    vv = torch.cat([vp, vc], dim=2)
+    pk = torch.cat([pkp, pkc], dim=2)               # (B,nc,2C)
+    s = torch.einsum("bnqkgd,bntkd->bnkgqt", qc, kk).float() / math.sqrt(dh)
+    pq = pqc[:, :, None, None, :, None]
+    pt = pk[:, :, None, None, None, :]
+    mask = (pt <= pq) & (pt > pq - window)
+    w = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    out = torch.einsum("bnkgqt,bntkd->bnqkgd", w.to(vv.dtype), vv)
+    return out.reshape(B, nc * C, KV, G, dh)[:, :S]
 
 
 def cache_shapes(batch, cache_len, n_kv, d_head, dtype):
@@ -185,8 +215,7 @@ def attend(q, k, v, positions, impl, window=None, block=None):
     if impl == "pallas":
         return pallas_attention(q, k, v, window)
     if impl == "local" and window is not None and q.shape[1] > 2 * window:
-        raise NotImplementedError(
-            "local_chunk_attention: ROADMAP module queue (windowed archs)")
+        return local_chunk_attention(q, k, v, positions, positions, window)
     if impl == "blocked":
         return blocked_attention(q, k, v, positions, positions, window, block=block)
     return plain_attention(q, k, v, positions, positions, window)

@@ -70,6 +70,14 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------- projections
+
+def proj_heads(x, w):
+    """(B,S,D) x (D,h,k) -> (B,S,h,k) as one matmul."""
+    D, h, k = w.shape
+    return (x @ w.reshape(D, h * k)).unflatten(-1, (h, k))
+
+
 # ----------------------------------------------------------------- embeddings
 
 def embed_lookup(p, tokens):

@@ -1,11 +1,13 @@
-"""Decoder stack, attention-block path (dense GQA archs).
+"""Decoder stack over the block patterns of the dense GQA, RG-LRU hybrid and
+RWKV-6 archs.
 
-Layers are grouped into repeating *pattern units* as in the JAX package;
-unit parameters and decode state are stacked along a leading ``layers`` dim
-and the port walks the units in a Python loop (PyTorch runs eagerly, so
-``scan_layers`` changes nothing here).  Under autograd each unit is
-rematerialised as ``RunPolicy.remat`` says (``_remat_wrap``).  Recurrent (RG-LRU), RWKV, MoE and the
-vit/encodec frontends raise ``NotImplementedError`` naming their ROADMAP item.
+Layers are grouped into repeating *pattern units* as in the JAX package
+(e.g. ("rec", "rec", "attn") for recurrentgemma); unit parameters and decode
+state are stacked along a leading ``layers`` dim and the port walks the units
+in a Python loop (PyTorch runs eagerly, so ``scan_layers`` changes nothing
+here).  Under autograd each unit is rematerialised as ``RunPolicy.remat``
+says (``_remat_wrap``).  MoE and the vit/encodec frontends raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -17,24 +19,25 @@ import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from . import attention as attn
+from . import rglru as rg
+from . import rwkv6 as rwkv
 from .layers import (apply_glu_mlp, apply_norm, apply_plain_mlp, embed_lookup,
                      glu_mlp_specs, norm_specs, plain_mlp_specs)
 from .module import ParamSpec, map_specs, stack_layer_specs, tree_map
 from ..configs.base import ModelConfig, RunPolicy
 
 _LATER = {
-    "rec": "RG-LRU blocks: ROADMAP module queue, hybrid/SSM",
-    "rwkv": "RWKV-6 blocks: ROADMAP module queue, hybrid/SSM",
     "moe": "MoE blocks: ROADMAP module queue, MoE",
     "vit": "vit frontend: ROADMAP module queue, frontends",
     "encodec": "encodec frontend: ROADMAP module queue, frontends",
 }
+BLOCK_TYPES = ("attn", "rec", "rwkv")
 
 
 def _check_supported(cfg: ModelConfig):
     for bt in cfg.block_pattern:
-        if bt != "attn":
-            raise NotImplementedError(_LATER.get(bt, bt))
+        if bt not in BLOCK_TYPES:
+            raise ValueError(bt)
     if cfg.n_experts:
         raise NotImplementedError(_LATER["moe"])
     if cfg.frontend:
@@ -48,7 +51,16 @@ def compute_dtype(policy: RunPolicy):
 # ----------------------------------------------------------------- spec build
 
 def block_specs(cfg: ModelConfig, bt: str):
-    assert bt == "attn", bt          # _check_supported ran first
+    if bt == "rec":
+        return {"ln1": norm_specs(cfg.d_model, cfg.norm),
+                "rec": rg.rglru_specs(cfg.d_model, cfg.rec_width, cfg.n_heads),
+                "ln2": norm_specs(cfg.d_model, cfg.norm),
+                "mlp": glu_mlp_specs(cfg.d_model, cfg.d_ff)}
+    if bt == "rwkv":
+        return {"ln1": norm_specs(cfg.d_model, cfg.norm),
+                "tm": rwkv.timemix_specs(cfg.d_model, cfg.n_heads, cfg.head_size),
+                "ln2": norm_specs(cfg.d_model, cfg.norm),
+                "cm": rwkv.channelmix_specs(cfg.d_model, cfg.d_ff)}
     if cfg.act == "gelu" and cfg.norm == "layernorm":
         mlp = plain_mlp_specs(cfg.d_model, cfg.d_ff)   # musicgen-style
     else:
@@ -155,12 +167,18 @@ def _mlp(p, x, cfg):
 
 def apply_block_full(bt, p, x, positions, cfg: ModelConfig, policy: RunPolicy,
                      cache_len: int | None = None):
-    """Returns (x, aux (2,) f32, cache-or-None).
+    """Returns (x, aux (2,) f32, state-or-None).
 
     With a cache (prefill) and ``use_pallas`` on, attention goes through the
-    flash-attention kernel; the JAX package sends prefill to
-    ``plain_attention`` even then.  Both compute the same function.
+    flash-attention kernel and the recurrences through the RG-LRU and WKV
+    kernels; the JAX package's prefill reaches none of its kernels even then
+    (``plain_attention``, ``associative_scan``, ``wkv_chunked``).  Both
+    compute the same functions.
     """
+    if bt == "rec":
+        return _rec_block_full(p, x, cfg, policy, cache_len)
+    if bt == "rwkv":
+        return _rwkv_block_full(p, x, cfg, policy, cache_len)
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     state = None
     S = x.shape[1]
@@ -179,6 +197,35 @@ def apply_block_full(bt, p, x, positions, cfg: ModelConfig, policy: RunPolicy,
     x = x + a
     h2 = apply_norm(p["ln2"], x, cfg.norm)
     x = x + _mlp(p["mlp"], h2, cfg)
+    return x, aux, state
+
+
+def _rec_block_full(p, x, cfg, policy, cache_len):
+    """RG-LRU block; with a cache, also its decode state (``h`` is the scan's
+    last step, as in the JAX package's ``_rglru_with_state``)."""
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    r, state = rg.rglru_with_state(p["rec"], h, cfg.n_heads, policy.use_pallas)
+    x = x + r
+    h2 = apply_norm(p["ln2"], x, cfg.norm)
+    x = x + apply_glu_mlp(p["mlp"], h2, cfg.act)
+    return x, aux, state if cache_len is not None else None
+
+
+def _rwkv_block_full(p, x, cfg, policy, cache_len):
+    """RWKV-6 block; with a cache, also its decode state (the final WKV state
+    and the last inputs of the two token shifts)."""
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    t, final = rwkv.timemix_with_state(p["tm"], h, n_heads=cfg.n_heads,
+                                       head_size=cfg.head_size,
+                                       use_kernel=policy.use_pallas)
+    x = x + t
+    h2 = apply_norm(p["ln2"], x, cfg.norm)
+    x = x + rwkv.apply_channelmix(p["cm"], h2)
+    state = None
+    if cache_len is not None:
+        state = {"tm_x": h[:, -1], "cm_x": h2[:, -1], "wkv": final}
     return x, aux, state
 
 
@@ -211,12 +258,25 @@ def _cache_from_kv(k, v, positions, cache_len, cfg):
 
 def apply_block_decode(bt, p, state, x, position, cfg: ModelConfig,
                        policy: RunPolicy | None = None):
-    """One-token block.  ``state`` (this layer's cache) is updated in place.
+    """One-token block.  ``state`` (this layer's cache or recurrent state) is
+    updated in place.
 
     With ``use_pallas`` on, decode attention goes through the flash-decode
     kernel; the JAX package uses its einsum path even then.  Both compute the
-    same function.
+    same function.  The recurrent blocks decode in plain PyTorch, as the JAX
+    package does: it has no kernel for one step.
     """
+    if bt == "rec":
+        h = apply_norm(p["ln1"], x, cfg.norm)
+        x = x + rg.decode_rglru(p["rec"], state, h, n_blocks=cfg.n_heads)
+        h2 = apply_norm(p["ln2"], x, cfg.norm)
+        return x + apply_glu_mlp(p["mlp"], h2, cfg.act), state
+    if bt == "rwkv":
+        h = apply_norm(p["ln1"], x, cfg.norm)
+        x = x + rwkv.decode_timemix(p["tm"], state, h, n_heads=cfg.n_heads,
+                                    head_size=cfg.head_size)
+        h2 = apply_norm(p["ln2"], x, cfg.norm)
+        return x + rwkv.decode_channelmix(p["cm"], state, h2), state
     use_kernel = policy is not None and policy.use_pallas
     h = apply_norm(p["ln1"], x, cfg.norm)
     o, new_cache = attn.decode_attention(
@@ -230,7 +290,12 @@ def apply_block_decode(bt, p, state, x, position, cfg: ModelConfig,
 
 # ------------------------------------------------------------- state builders
 
-def block_state_shapes(cfg: ModelConfig, batch: int, cache_len: int, dtype):
+def block_state_shapes(cfg: ModelConfig, bt: str, batch: int, cache_len: int, dtype):
+    if bt == "rec":
+        return rg.rglru_state_shapes(batch, cfg.rec_width, dtype)
+    if bt == "rwkv":
+        return rwkv.rwkv_state_shapes(batch, cfg.d_model, cfg.n_heads,
+                                      cfg.head_size, dtype)
     clen = min(cache_len, cfg.window) if cfg.window else cache_len
     return attn.cache_shapes(batch, clen, cfg.n_kv_heads, cfg.d_head, dtype)
 
@@ -239,13 +304,14 @@ def model_state_shapes(cfg: ModelConfig, batch: int, cache_len: int, dtype):
     """Tree of (shape, dtype) leaves; unit leaves carry a leading n_units dim."""
     _check_supported(cfg)
     n_units, tail = n_units_tail(cfg)
-    unit = {f"b{i}": block_state_shapes(cfg, batch, cache_len, dtype)
-            for i in range(len(cfg.block_pattern))}
+    unit = {f"b{i}": block_state_shapes(cfg, bt, batch, cache_len, dtype)
+            for i, bt in enumerate(cfg.block_pattern)}
     stacked = {b: {k: ((n_units,) + s, dt) for k, (s, dt) in leaves.items()}
                for b, leaves in unit.items()}
     out = {"units": stacked}
     if tail:
-        out["tail"] = {f"t{i}": block_state_shapes(cfg, batch, cache_len, dtype)
+        out["tail"] = {f"t{i}": block_state_shapes(cfg, cfg.block_pattern[i], batch,
+                                                   cache_len, dtype)
                        for i in range(tail)}
     return out
 

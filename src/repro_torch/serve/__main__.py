@@ -2,11 +2,15 @@
 
   PYTHONPATH=src python -m repro_torch.serve --requests 12 --slots 4
   PYTHONPATH=src python -m repro_torch.serve --arch qwen2-1.5b --full
+  PYTHONPATH=src python -m repro_torch.serve --arch recurrentgemma-2b --device cpu
+  PYTHONPATH=src python -m repro_torch.serve --arch rwkv6-7b --full
 
 Without ``--full`` the arch's reduced smoke config runs in f32, as the JAX
 package's ``examples/serve_lm.py`` does; with ``--full`` the published config
 runs with the default RunPolicy (bf16 compute, f32 params).  The kernels are
-on; on the CPU (``--device cpu``) they are their plain versions.
+on; on the CPU (``--device cpu``) they are their plain versions.  The cache
+holds 128 slots, or the window of a windowed arch if that is shorter (the
+serving engine takes no longer cache there).
 """
 from __future__ import annotations
 
@@ -41,7 +45,8 @@ def main(argv=None):
         cfg = smoke_config(args.arch)
         policy = RunPolicy(remat="none", dtype="f32", use_pallas=True)
     params = api.init(cfg, seed=0, device=device)
-    eng = ServingEngine(cfg, policy, params, n_slots=args.slots, cache_len=128,
+    cache_len = min(128, cfg.window) if cfg.window else 128
+    eng = ServingEngine(cfg, policy, params, n_slots=args.slots, cache_len=cache_len,
                         temperature=args.temperature, device=device)
     del params
 

@@ -40,7 +40,8 @@ class Request:
 def _update_slot(state, state1, slot: int):
     """Copy single-request state1 (batch 1) into lane ``slot`` of state.
 
-    State trees are {"units": leaves (n_units, B, ...), "tail": leaves (B, ...)}.
+    State trees are {"units": leaves (n_units, B, ...), "tail": leaves (B, ...)},
+    whatever the leaves are (K/V caches, RG-LRU or RWKV states).
     The copy is in place: ``state``'s tensors are written and ``state`` is
     returned (the JAX version builds a new tree).
     """
@@ -59,6 +60,12 @@ class ServingEngine:
                  temperature: float = 0.0, device="cuda"):
         if cfg.frontend == "encodec":
             raise NotImplementedError("serving engine drives token-stream archs")
+        if cfg.window is not None and cache_len > cfg.window:
+            # the decode state holds min(cache_len, window) slots while a
+            # prefill shorter than cache_len pads its cache to cache_len; the
+            # JAX package's engine fails on the first insert with a TypeError
+            raise ValueError(f"{cfg.name}: cache_len {cache_len} > window {cfg.window}; "
+                             f"a windowed arch serves with cache_len <= window")
         self.device = api.resolve_device(device)
         self.cfg, self.policy = cfg, policy
         # cast to the compute dtype once here, not on every step

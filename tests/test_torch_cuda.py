@@ -9,7 +9,9 @@ they run on a machine that has only PyTorch:
 Tolerances: f32 2e-5 with TF32 off, bf16 2e-2; for the backward kernels
 f32 5e-5 (the reference's grad bound) and bf16 2e-2, each of the call's
 scale max(1, max|plain grad|): the bf16 kernels round P and dS to bf16 for
-their products, as the forward rounds P.
+their products, as the forward rounds P.  The RG-LRU scan: 1e-5 absolute;
+the RWKV-6 WKV: 1e-5 relative to the largest plain output (and state), the
+reference's bounds (tests/test_kernels.py).
 """
 import numpy as np
 import pytest
@@ -21,6 +23,8 @@ from repro_torch.kernels.flash_attention import (flash_attention, flash_attentio
                                                  flash_attention_bwd_dkv,
                                                  flash_attention_bwd_dq,
                                                  flash_attention_fwd)
+from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rwkv6_kernel import rwkv6_wkv
 
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 GRAD_TOL = {"f32": 5e-5, "bf16": 2e-2}
@@ -42,7 +46,7 @@ def _heads_major(x, seq_major):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("window,shift", [(None, 0), (50, 0), (None, 37)])
 @pytest.mark.parametrize("seq_major", [False, True])
 def test_cuda_flash_attention_matches_plain(dt, D, window, shift, seq_major):
@@ -64,7 +68,7 @@ def test_cuda_flash_attention_matches_plain(dt, D, window, shift, seq_major):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("window", [None, 30])
-@pytest.mark.parametrize("H,KVH,D", [(12, 2, 128), (12, 1, 64)])
+@pytest.mark.parametrize("H,KVH,D", [(12, 2, 128), (12, 1, 64), (10, 1, 256), (4, 2, 256)])
 def test_cuda_flash_decode_matches_plain(dt, window, H, KVH, D):
     dev = _cuda()
     rng = np.random.default_rng(1)
@@ -94,6 +98,11 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(1, 4, 16, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtypes"):
         flash_attention_fwd(q, q[:, :2], q[:, :2])
+    q = torch.zeros(1, 4, 512, device=dev, dtype=torch.bfloat16)     # D = 512
+    kv = torch.zeros(1, 2, 16, 512, device=dev, dtype=torch.bfloat16)
+    pos = torch.zeros(1, 16, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_decode(q, kv, kv, pos, pos[:, 0].contiguous())
 
 
 def _scaled_err(got, want):
@@ -156,10 +165,83 @@ def test_cuda_flash_attention_function_grads(dt):
 @pytest.mark.cuda
 def test_cuda_bwd_wrappers_reject_what_the_kernels_do_not_take():
     dev = _cuda()
-    q = torch.zeros(1, 4, 16, 96, device=dev, dtype=torch.bfloat16)     # D = 96
     lse = torch.zeros(1, 4, 16, device=dev)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bwd(q, q[:, :2], q[:, :2], q, lse, q)
+    for D in (96, 256):              # the backward kernels take D = 64 and 128
+        q = torch.zeros(1, 4, 16, D, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention_bwd(q, q[:, :2], q[:, :2], q, lse, q)
     q = torch.zeros(1, 4, 16, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, q[:, :2], q[:, :2], q, lse.double(), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W", [(3, 17, 32), (2, 50, 64), (1, 256, 128), (2, 300, 100),
+                                   (1, 2000, 2560)])
+def test_cuda_rglru_scan_matches_plain(B, S, W):
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, W)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal((B, S, W)).astype(np.float32)).to(dev)
+    n0 = rglru_scan.launches
+    h = rglru_scan(a, b)
+    r = ref.rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == n0 + 1
+    assert h.shape == (B, S, W) and h.dtype == torch.float32
+    assert (h - r).abs().max().item() < 1e-5
+
+
+def _wkv_inputs(dev, B, H, S, hs, dt, seq_major, decay_sd, seed=4):
+    """r, k, v (dt), w_log (f32) as (B,H,S,hs) views (of (B,S,H,hs) memory
+    when ``seq_major``, as the model passes them), u (H,hs) in dt.  The decays
+    are exp(w_log) with w_log = -exp(N(0, decay_sd)): decay_sd 3 gives steps
+    from ~1 down to ~exp(-1e4), as strong as the random-weight models' own."""
+    rng = np.random.default_rng(seed)
+    mk = lambda x: _heads_major(torch.from_numpy(x.astype(np.float32)).to(dev), seq_major)
+    r, k, v = (mk(rng.standard_normal((B, H, S, hs))).to(TDT[dt]) for _ in range(3))
+    w_log = mk(-np.exp(decay_sd * rng.standard_normal((B, H, S, hs))))
+    u = torch.from_numpy(rng.standard_normal((H, hs)).astype(np.float32)).to(dev, TDT[dt])
+    return r, k, v, w_log, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,S,hs", [(2, 3, 70, 32), (1, 2, 64, 32), (1, 1, 130, 64),
+                                      (2, 4, 1, 64), (1, 8, 333, 64)])
+@pytest.mark.parametrize("seq_major", [False, True])
+@pytest.mark.parametrize("decay_sd", [1.0, 3.0])
+def test_cuda_rwkv6_wkv_matches_plain(dt, B, H, S, hs, seq_major, decay_sd):
+    dev = _cuda()
+    r, k, v, w_log, u = _wkv_inputs(dev, B, H, S, hs, dt, seq_major, decay_sd)
+    n0 = rwkv6_wkv.launches
+    o, state = rwkv6_wkv(r, k, v, w_log, u)
+    ro, rstate = ref.rwkv6_wkv_ref(r, k, v, w_log, u)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv.launches == n0 + 1
+    assert o.shape == (B, H, S, hs) and o.dtype == torch.float32
+    assert state.shape == (B, H, hs, hs) and state.dtype == torch.float32
+    assert (o - ro).abs().max().item() < 1e-5 * ro.abs().max().item()
+    assert (state - rstate).abs().max().item() < 1e-5 * rstate.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_recurrent_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    a = torch.rand(1, 8, 32, device=dev)
+    with pytest.raises(ValueError, match="dtypes"):
+        rglru_scan(a.double(), a.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        rglru_scan(a.requires_grad_(), a)
+    r, k, v, w_log, u = _wkv_inputs(dev, 1, 2, 10, 64, "bf16", False, 1.0)
+    with pytest.raises(ValueError, match="dtypes"):
+        rwkv6_wkv(r, k, v, w_log.bfloat16(), u)
+    with pytest.raises(ValueError, match="head size"):
+        rwkv6_wkv(r[..., :48], k[..., :48], v[..., :48], w_log[..., :48], u[:, :48])
+    strided = torch.zeros(1, 2, 10, 128, device=dev, dtype=r.dtype)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_wkv(strided, k, v, w_log, u)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rwkv6_wkv(r.float().requires_grad_(), k.float(), v.float(), w_log, u)

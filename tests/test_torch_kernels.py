@@ -116,7 +116,8 @@ def test_ops_dispatch_matches_plain_on_cpu():
                                              ka.contiguous(), o, lse, do.contiguous())
     assert all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
     assert ops.launch_counts() == {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-                                   "flash_attention_bwd_dkv": 0, "flash_decode": 0}
+                                   "flash_attention_bwd_dkv": 0, "flash_decode": 0,
+                                   "rglru_scan": 0, "rwkv6_wkv": 0}
 
 
 @pytest.mark.parametrize("B,KVH,T,n_sm", [(4, 2, 4096, 132), (1, 1, 40, 132),
