@@ -6,13 +6,17 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. device   — require CUDA; print the card's name and power limit.
-2. build    — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``.
+2. build    — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+              print each kernel's registers, spills and ptxas performance
+              warnings (``-Xptxas -v``).
 3. kernels  — hold each kernel against its plain PyTorch version on the card
               at the serving and training shapes (forward kernels: bf16
               within 2e-2, f32 within 2e-5 with TF32 off; backward kernels:
               bf16 within 2e-2 and f32 within 5e-5 of each call's
-              max(1, max|plain grad|)), and time kernel, plain version and
-              one PyTorch library call on the same work (the library call is
+              max(1, max|plain grad|)), check that two dk/dv runs at the
+              training shape give the same bits, and time kernel, plain
+              version and one PyTorch library call on the same work, with
+              the kernel's achieved TFLOP/s (the library call is
               a yardstick only; the port never calls it).  The kernels of
               the recurrent archs too: the forward and decode kernels at
               D=256 (recurrentgemma's local attention: 10 query heads over
@@ -155,6 +159,40 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
+def kernel_name(mangled: str) -> str:
+    """``fwd_bf16<128>`` from the Itanium name of a kernel in an anonymous
+    namespace (length-prefixed components, one int template argument)."""
+    i, names = mangled.find("N") + 1, []
+    while 0 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+        if mangled.startswith("ILi", i):
+            return f"{names[-1]}<{mangled[i + 3:mangled.index('E', i)]}>"
+    return names[-1] if names else mangled
+
+
+def ptxas_summary(log: str):
+    """[(kernel, registers, spill line, [performance warnings])] from the
+    ``-Xptxas -v`` output of one library."""
+    out, warn = {}, {}
+    current = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            current = kernel_name(line.split("'")[1] if "'" in line else line.split()[-1])
+            out.setdefault(current, ["?", "no spill line"])
+        elif "spill stores" in line and current:
+            out[current][1] = line.strip()
+        elif "Used" in line and "registers" in line and current:
+            out[current][0] = line.split("Used")[1].split()[0]
+        if "Performance Loss" in line and "'" in line:
+            warn.setdefault(kernel_name(line.rsplit("'", 2)[1]), []).append(
+                line.split(":", 1)[1].split(" for the function")[0].split(" in the function")[0].strip())
+    return [(k, r, sp, warn.get(k, [])) for k, (r, sp) in out.items()]
+
+
 def bound(flops, nbytes, peak_flops):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
@@ -220,6 +258,7 @@ def check_flash_attention(gen, dev, timer):
     flops = 4.0 * B * H * D * visible_pairs(S, S, None, 0)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * B * H * S
     row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    row["tflops"] = flops / row["ms"] / 1e9
     print(f"flash_attention_fwd work at B={B} H={H} KVH={KVH} S={S} D={D} bf16 causal: "
           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; kernel {row['ms']:.4f} ms "
           f"({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain {row['plain_ms']:.4f} ms, "
@@ -285,6 +324,16 @@ def check_flash_attention_bwd(gen, dev, timer):
     do = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
     o, lse = ref.flash_attention_ref(q, k, v)
     _, delta = flash_attention_bwd_dq(q, k, v, o, lse, do)
+    # dk/dv adds each KV head's query-head partials in a fixed order: two runs
+    # must give the same bits
+    runs = [flash_attention_bwd_dkv(q, k, v, lse, delta, do) for _ in range(2)]
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"flash_attention_bwd_dkv at B={B} H={H} KVH={KVH} S={S} D={D}: two runs "
+          f"{'bit-equal' if bit_equal else 'DIFFER'}", flush=True)
+    if not bit_equal:
+        fail("flash_attention_bwd_dkv is not deterministic")
+    del runs
     qx, kx, vx = (t.detach().requires_grad_() for t in
                   (q, k.repeat_interleave(H // KVH, 1), v.repeat_interleave(H // KVH, 1)))
     out = torch.nn.functional.scaled_dot_product_attention(qx, kx, vx, is_causal=True)
@@ -307,6 +356,9 @@ def check_flash_attention_bwd(gen, dev, timer):
         row = {"ms": timer.ms(fn), "plain_ms": timer.ms(plain, iters=3),
                "library_ms": library_ms, "max_abs_err": worst[name]}
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        row["tflops"] = flops / row["ms"] / 1e9
+        if name == "flash_attention_bwd_dkv":
+            row["bit_equal_runs"] = bit_equal
         print(f"{name} work at B={B} H={H} KVH={KVH} S={S} D={D} bf16 causal: "
               f"{n_mm} products, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; kernel "
               f"{row['ms']:.4f} ms ({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain "
@@ -435,6 +487,7 @@ def check_flash_attention_d256(gen, dev, timer):
     flops = 4.0 * B * H * D * visible_pairs(S, S, window, 0)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * B * H * S
     row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    row["tflops"] = flops / row["ms"] / 1e9
     print(f"flash_attention_fwd work at B={B} H={H} KVH={KVH} S={S} D={D} bf16 window "
           f"{window}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; kernel {row['ms']:.4f} ms "
           f"({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain {row['plain_ms']:.4f} ms, sdpa "
@@ -1377,9 +1430,10 @@ def main():
     print(f"build: {', '.join(f'{n} {t:.1f} s' for n, t in times.items()) or 'cached'}; "
           f"total {time.perf_counter() - t0:.1f} s", flush=True)
     for name in build.SOURCES:
-        for line in build.ptxas_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+        for kernel, regs, spills, warnings in ptxas_summary(build.ptxas_log(name)):
+            print(f"ptxas {name} {kernel}: {regs} registers, {spills}", flush=True)
+            for w in warnings:
+                print(f"ptxas {name} {kernel}: {w}", flush=True)
 
     phase("kernels")
     gen = torch.Generator(device=dev)

@@ -18,17 +18,18 @@ constexpr int BK = 64;   // keys per KV tile
 // The functions below take any argument struct with the fields Sq, Skv,
 // window (<= 0: none) and causal_shift.
 
-// Range of KV tiles [lo, hi) that hold at least one key visible to some
-// query row of the tile starting at q0.
+// Range of KV tiles [lo, hi) of bk keys that hold at least one key visible
+// to some query row of [q0, q0 + rows).
 template <class A>
-__device__ __forceinline__ void kv_tile_range(const A& a, int q0, int& lo, int& hi) {
-  int nk = (a.Skv + BK - 1) / BK;
-  int q_last = min(q0 + BQ - 1, a.Sq - 1) + a.causal_shift;   // largest visible key
-  hi = q_last < 0 ? 0 : min(nk, q_last / BK + 1);
+__device__ __forceinline__ void kv_tile_range(const A& a, int q0, int& lo, int& hi,
+                                              int rows = BQ, int bk = BK) {
+  int nk = (a.Skv + bk - 1) / bk;
+  int q_last = min(q0 + rows - 1, a.Sq - 1) + a.causal_shift;  // largest visible key
+  hi = q_last < 0 ? 0 : min(nk, q_last / bk + 1);
   lo = 0;
   if (a.window > 0) {
     int first = q0 + a.causal_shift - a.window + 1;          // smallest visible key
-    lo = first <= 0 ? 0 : first / BK;
+    lo = first <= 0 ? 0 : first / bk;
   }
 }
 

@@ -9,27 +9,52 @@
 // KVH=2, S=4096, D=128, causal) dq does three products per visible (query,
 // key) pair and head (S = Q K^T, dP = dO V^T, dQ = dS K: 77 GFLOP) and dk/dv
 // four (S^T, dP^T, dV = P^T dO, dK = dS^T Q: 103 GFLOP), against ~10 MB of
-// tensors.  So the designs follow the forward kernel: 64 x 64 tiles, 4 warps
-// of 16 rows, products on the tensor cores with mma.sync m16n8k16 (bf16
-// operands, f32 accumulation; P and dS are rounded to bf16 where they feed a
-// product, as the forward rounds P), operand fragments from ldmatrix,
-// cp.async double buffering, and dead tiles cut by the loop bounds.  The f32
-// path uses FMAs so that it keeps full f32 accuracy (the tensor cores would
-// give TF32).  wgmma, TMA and warp specialisation are later work.
+// tensors.  In the bf16 kernels P and dS are rounded to bf16 where they feed
+// a product (as the forward rounds P); every sum is f32.  The f32 paths
+// (dq_f32, dkv_f32) use FMAs so that they keep full f32 accuracy (the tensor
+// cores would give TF32).
 //
-// dq    one block per (b, h, 64-row q tile), walking the live KV tiles.  It
-//       first computes delta = rowsum(dO * O) for its rows (the reference
-//       does this outside its Pallas kernels) and writes it for dk/dv.
-// dk/dv one block per (b, kv-head, 64-row k tile), walking the G query heads
-//       x live q tiles with dk and dv in registers: no atomics, as the Pallas
-//       kernel's sequential (G * nQ) grid axis.  It reads the delta that dq
-//       wrote, so it is launched after dq on the same stream.
+// dq    (dq_bf16) one block of 4 warps per (b, h, 64-row q tile), walking the
+//       live KV tiles with mma.sync m16n8k16, ldmatrix and cp.async double
+//       buffering.  It first computes delta = rowsum(dO * O) for its rows
+//       (the reference does this outside its Pallas kernels) and writes it
+//       for dk/dv.
+// dk/dv (dkv_bf16, then dkv_reduce) reads the delta that dq wrote, so it is
+//       launched after dq on the same stream.  The Pallas kernel walks the G
+//       query heads of a KV head and its q tiles along a sequential grid axis,
+//       summing dk and dv in scratch.  Blocks of a GPU run in no order, and
+//       one block per (b, kv head, k tile) is too few to fill 132 SMs (128 at
+//       the training shape) and badly balanced under the causal mask.  So:
+//       one block of 384 threads per (b, query head h, 128-row k tile),
+//       heaviest k tiles first: 384 blocks at the training shape, none
+//       walking more than twice the mean number of q tiles.  Warpgroup 0 is
+//       the producer (24 registers): one thread loads the block's K and V
+//       tiles once and then, for each live 64-row q tile, Q and dO with TMA
+//       into a ring of three slots, while the warp's lanes copy that tile's
+//       lse (times log2 e) and delta beside them; full and empty mbarriers
+//       guard each slot.  Warpgroups 1 and 2 (240 registers) own 64 keys
+//       each and, per q tile, run S^T = K Q^T and dP^T = V dO^T with wgmma
+//       m64n64k16 (A = K or V, B = Q or dO, all K-major from shared memory),
+//       form P^T = 2^(S^T scale log2e - lse log2e) (masked on the diagonal
+//       and window-edge tiles only) and dS^T = P^T (dP^T - delta) scale in
+//       registers, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+//       register A fragments and dO, Q read MN-major through the transpose
+//       flag.  The products are staggered: S^T is queued behind the previous
+//       tile's dV and dK, and dP^T runs while P^T is formed.  dK and dV
+//       (64 x D f32 each) stay in registers for the whole walk and are
+//       written once, as the f32 partial of query head h, into scratch
+//       (2, B, H, Skv, D) that the wrapper allocates.  dkv_reduce then adds
+//       the G partials of each KV head in a fixed order (g = 0 .. G-1) and
+//       writes bf16 dk and dv through their strides: no atomics, so two runs
+//       give the same bits.  Both launches are one call of fa_bwd_dkv.
+//       Helpers, and the places where such kernels go wrong (and how ptxas
+//       must see the code to keep wgmma asynchronous): hopper_common.cuh.
 //
 // Layouts: q, o, do, dq (B,H,Sq,D); k, v, dk, dv (B,KVH,Skv,D), each
 // addressed by (batch, head, row) strides in elements with D contiguous; lse
 // and delta (B,H,Sq) f32 contiguous.  Query head h reads KV head h / G.
 // Query row i sits at absolute position i + causal_shift.
-#include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -46,14 +71,15 @@ struct BwdArgs {
 };
 
 // Range of q tiles [lo, hi) holding at least one query that sees a key of
-// the tile starting at k0.
-__device__ __forceinline__ void q_tile_range(const BwdArgs& a, int k0, int& lo, int& hi) {
+// [k0, k0 + keys).
+__device__ __forceinline__ void q_tile_range(const BwdArgs& a, int k0, int& lo, int& hi,
+                                             int keys = BK) {
   const int nq = (a.Sq + BQ - 1) / BQ;
   const int first = k0 - a.causal_shift;                     // smallest query
   lo = first <= 0 ? 0 : min(nq, first / BQ);
   hi = nq;
   if (a.window > 0) {
-    const int last = min(k0 + BK, a.Skv) - 1 + a.window - 1 - a.causal_shift;
+    const int last = min(k0 + keys, a.Skv) - 1 + a.window - 1 - a.causal_shift;
     hi = last < 0 ? 0 : min(nq, last / BQ + 1);
   }
   if (hi < lo) hi = lo;
@@ -244,195 +270,297 @@ __global__ void __launch_bounds__(128) dq_bf16(BwdArgs a) {
   }
 }
 
-// 4 warps; warp w owns keys k0 + 16w .. +15 and works on transposed tiles
-// (rows = keys, columns = queries): S^T = K Q^T, P^T, dV += P^T dO,
-// dP^T = V dO^T, dS^T, dK += dS^T Q.  K and V stay in shared memory for the
-// whole walk; Q, dO, lse and delta of the next (head, q tile) are copied
-// while this one is computed.
+// ------------------------------------------ dk/dv bf16: TMA, wgmma, warp-specialised
+
+constexpr int DKV_BK = 128;        // keys per block: two consumer warpgroups of 64
+constexpr int DKV_BQ = BQ;         // queries per tile of the walk (64, as q_tile_range)
+
 template <int D>
-__global__ void __launch_bounds__(128) dkv_bf16(BwdArgs a) {
-  constexpr int LD = D + 8;
-  constexpr int TILE = BQ * LD;                  // BQ == BK
-  constexpr int CH = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][LD]
-  __nv_bfloat16* Vs = Ks + TILE;                                    // [BK][LD]
-  __nv_bfloat16* Qs = Vs + TILE;                                    // [2][BQ][LD]
-  __nv_bfloat16* dOs = Qs + 2 * TILE;                               // [2][BQ][LD]
-  float* lss = reinterpret_cast<float*>(dOs + 2 * TILE);             // [2][BQ] lse*log2e
-  float* dls = lss + 2 * BQ;                                          // [2][BQ] delta
+struct DkvTile {
+  static constexpr int PANELS = D / 64;                   // 128-byte panels per row
+  static constexpr int STAGES = 3;
+  static constexpr int KV_BYTES = DKV_BK * D * 2;         // the K or the V tile
+  static constexpr int QT_BYTES = DKV_BQ * D * 2;         // one Q or one dO tile
+  static constexpr int SMEM = 2 * KV_BYTES + STAGES * 2 * QT_BYTES +
+                              STAGES * 2 * DKV_BQ * 4 + 1024 + 64;
+};
 
-  const int kt = blockIdx.x;                     // tile 0 has the most live q tiles
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.KVH;
-  const int k0 = kt * BK;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;
+struct DkvParams {
+  CUtensorMap tq, tdo;             // boxes of 64 columns by DKV_BQ rows
+  CUtensorMap tk, tv;              // boxes of 64 columns by DKV_BK rows
+  BwdArgs a;
+  float* part;                     // (2, B, H, Skv, D): dk, then dv, per query head
+};
 
+template <int D>
+__global__ void __launch_bounds__(384, 1) dkv_bf16(const __grid_constant__ DkvParams p) {
+  using T = DkvTile<D>;
   using bf16 = __nv_bfloat16;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kh * a.k_sh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kh * a.v_sh;
-  for (int i = tid; i < BK * CH; i += 128) {     // rows past Skv are zeros
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool in = k0 + r < a.Skv;
-    const long long row = in ? k0 + r : 0;
-    cp_async16(Ks + r * LD + c, kp + row * a.k_ss + c, in ? 16 : 0);
-    cp_async16(Vs + r * LD + c, vp + row * a.v_ss + c, in ? 16 : 0);
-  }
-  cp_async_commit();
+  const BwdArgs& a = p.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(smem);          // [PANELS][DKV_BK][64], swizzled
+  bf16* Vs = Ks + DKV_BK * D;                        // [PANELS][DKV_BK][64]
+  bf16* Qs = Vs + DKV_BK * D;                        // [STAGES][PANELS][DKV_BQ][64]
+  bf16* dOs = Qs + T::STAGES * DKV_BQ * D;           // [STAGES][PANELS][DKV_BQ][64]
+  float* lss = reinterpret_cast<float*>(dOs + T::STAGES * DKV_BQ * D);   // [STAGES][DKV_BQ]
+  float* dls = lss + T::STAGES * DKV_BQ;                                  // [STAGES][DKV_BQ]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dls + T::STAGES * DKV_BQ);
+  uint64_t* kv_full = bars;                          // K and V arrived
+  uint64_t* full = bars + 1;                         // [STAGES] Q, dO, lse, delta arrived
+  uint64_t* empty = bars + 1 + T::STAGES;            // [STAGES] both consumers done
 
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * DKV_BK;                // tile 0 has the most live q tiles
+  const int kh = h / (a.H / a.KVH);
   int lo, hi;
-  q_tile_range(a, k0, lo, hi);
-  const int nt = hi - lo, total = G * nt;
+  q_tile_range(a, k0, lo, hi, DKV_BK);
+  const int n = hi - lo;
 
-  auto load_q = [&](int it, int buf) {           // rows past Sq are zeros
-    const int h = kh * G + it / nt, q0 = (lo + it % nt) * BQ;
-    const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const bf16* dop = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
-    for (int i = tid; i < BQ * CH; i += 128) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool in = q0 + r < a.Sq;
-      const long long row = in ? q0 + r : 0;
-      cp_async16(Qs + buf * TILE + r * LD + c, qp + row * a.q_ss + c, in ? 16 : 0);
-      cp_async16(dOs + buf * TILE + r * LD + c, dop + row * a.do_ss + c, in ? 16 : 0);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < T::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 33);               // the TMA thread twice, 32 lanes once
+      hopper::mbar_init(&empty[s], 256);             // every consumer thread
     }
-    if (tid < BQ) {
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warpgroup 0 produces, 1 and 2 consume; the role must be provably
+  // warp-uniform and the two paths must not rejoin, or ptxas ignores
+  // setmaxnreg and holds the consumers to the launch's 168 registers
+  const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  if (role == 0) {
+    // ---- producer: warp 0 keeps the ring full
+    hopper::setmaxnreg_dec<hopper::PRODUCER_REGS>();
+    const int lane = threadIdx.x;
+    if (threadIdx.x < 32 && n > 0) {
+      if (lane == 0) {
+        hopper::mbar_arrive_expect(kv_full, 2 * T::KV_BYTES);
+#pragma unroll
+        for (int pn = 0; pn < T::PANELS; ++pn) {
+          hopper::tma_load(Ks + pn * DKV_BK * 64, &p.tk, kv_full, pn * 64, k0, kh, b);
+          hopper::tma_load(Vs + pn * DKV_BK * 64, &p.tv, kv_full, pn * 64, k0, kh, b);
+        }
+      }
       const long long base = ((long long)b * a.H + h) * a.Sq;
-      const bool in = q0 + tid < a.Sq;
-      lss[buf * BQ + tid] = in ? a.lse[base + q0 + tid] * LOG2E : 0.f;
-      dls[buf * BQ + tid] = in ? a.delta[base + q0 + tid] : 0.f;
+      for (int i = 0; i < n; ++i) {
+        const int s = i % T::STAGES;
+        const int q0 = (lo + i) * DKV_BQ;
+        // this tile's lse (times log2 e) and delta, read before the slot is
+        // free.  Rows past Sq: lse 0 and delta 0 with the zero rows of Q and
+        // dO give P = 1 but dV and dK contributions of exactly 0.
+        float lsv[DKV_BQ / 32], dlv[DKV_BQ / 32];
+#pragma unroll
+        for (int r = 0; r < DKV_BQ / 32; ++r) {
+          const int row = q0 + lane + 32 * r;
+          lsv[r] = row < a.Sq ? a.lse[base + row] * LOG2E : 0.f;
+          dlv[r] = row < a.Sq ? a.delta[base + row] : 0.f;
+        }
+        hopper::mbar_wait(&empty[s], ((i / T::STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          hopper::mbar_arrive_expect(&full[s], 2 * T::QT_BYTES);
+#pragma unroll
+          for (int pn = 0; pn < T::PANELS; ++pn) {
+            hopper::tma_load(Qs + (s * T::PANELS + pn) * DKV_BQ * 64, &p.tq, &full[s], pn * 64, q0, h, b);
+            hopper::tma_load(dOs + (s * T::PANELS + pn) * DKV_BQ * 64, &p.tdo, &full[s], pn * 64, q0, h, b);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < DKV_BQ / 32; ++r) {
+          lss[s * DKV_BQ + lane + 32 * r] = lsv[r];
+          dls[s * DKV_BQ + lane + 32 * r] = dlv[r];
+        }
+        hopper::mbar_arrive(&full[s]);               // releases this lane's stores
+      }
     }
-    cp_async_commit();
-  };
+  } else {
+    // ---- consumers: warpgroup cw owns keys k0 + 64 cw .. + 63
+    hopper::setmaxnreg_inc<hopper::CONSUMER_REGS>();
+    const int cw = role - 1;                           // warp-uniform, as ptxas must see it
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int kw = k0 + 64 * cw;                       // this warpgroup's first key
+    const int kr0 = kw + 16 * warp + g, kr1 = kr0 + 8;
+    int wlo, whi;                                      // the q tiles this warpgroup needs
+    q_tile_range(a, kw, wlo, whi, 64);
+    if (kw >= a.Skv) whi = wlo;                        // keys past Skv: nothing to compute
+    const float sl2 = a.scale * LOG2E;
 
-  float dk[D / 8][4], dv[D / 8][4];
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
-  const float sl2 = a.scale * LOG2E;
-  const bf16* Kw = Ks + (warp * 16 + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8;  // A-fragment rows
-  const bf16* Vw = Vs + (warp * 16 + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  if (total > 0) load_q(0, 0);
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    const int q0 = (lo + it % nt) * BQ;
-    if (it + 1 < total) {
-      load_q(it + 1, buf ^ 1);                   // buffer freed by the sync that
-      cp_async_wait<1>();                        // ended the previous iteration
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + buf * TILE;
-    const bf16* dOt = dOs + buf * TILE;
-    const float* ls = lss + buf * BQ;
-    const float* dl = dls + buf * BQ;
+    // A operands: this warpgroup's 64 rows of K and V, panels DKV_BK rows apart
+    const uint32_t k_addr = smem_addr(Ks) + 64 * cw * 128;
+    const uint32_t v_addr = smem_addr(Vs) + 64 * cw * 128;
+    // Per q tile, staggered so that the tensor cores have work queued while
+    // the registers allow it (dK, dV and the in-flight operands take ~208):
+    // S^T is issued behind the previous tile's dV and dK products; then dP^T
+    // runs while P^T is formed; then dS^T, and dV, dK are issued and left
+    // running.  The live tiles [jlo, jhi) are walked in one loop with no
+    // branch around a wgmma, so that ptxas sees the same products in flight
+    // at every point (where it cannot, it serialises wgmma).
+    const int jlo = max(lo, wlo), jhi = max(jlo, min(hi, whi));
+    uint32_t pa[4][4], da[4][4];                       // dV/dK A operands: live until the wait
+    auto issue_t = [&](float (&acc)[32], uint32_t rows, uint32_t cols) {  // rows cols^T
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ra = (kk / 4) * DKV_BK * 128 + (kk % 4) * 32;
+        const uint32_t ca = (kk / 4) * DKV_BQ * 128 + (kk % 4) * 32;
+        hopper::wgmma_ss_n64<0>(acc, hopper::desc_sw128(rows + ra, 16, 1024),
+                                hopper::desc_sw128(cols + ca, 16, 1024), kk);
+      }
+      hopper::wgmma_commit();
+    };
+    // P^T = 2^(S^T sl2 - lse log2e) on visible pairs (register 4j + e: key
+    // kr0 or kr1, query 8j + 2c + (e & 1)), masked on edge tiles only
+    // (masked is a literal at each call: the inlined copies fold it away)
+    auto p_as = [&](bool masked, const float (&st)[32], float (&p)[32], const float* ls, int q0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 lv = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[4 * j + e] = hopper::ex2(fmaf(st[4 * j + e], sl2, (e & 1) ? -lv.y : -lv.x));
+          if (masked && !visible_q(a, q0 + 8 * j + 2 * c + (e & 1), e < 2 ? kr0 : kr1)) p[4 * j + e] = 0.f;
+        }
+        pa[j / 2][(j & 1) * 2] = pack_bf16(p[4 * j], p[4 * j + 1]);
+        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[4 * j + 2], p[4 * j + 3]);
+      }
+    };
 
-    // S^T = K Q^T: 16 keys x 64 queries per warp
-    float s[BQ / 8][4];
+    if (n > 0) hopper::mbar_wait(kv_full, 0);
+    int i = 0;
+    for (; lo + i < jlo; ++i) {                        // tiles with no query that sees these keys
+      hopper::mbar_wait(&full[i % T::STAGES], (i / T::STAGES) & 1);
+      hopper::mbar_arrive(&empty[i % T::STAGES]);
+    }
+    for (; lo + i < jhi; ++i) {
+      const int s = i % T::STAGES;
+      const int q0 = (lo + i) * DKV_BQ;
+      hopper::mbar_wait(&full[s], (i / T::STAGES) & 1);
+      const uint32_t q_addr = smem_addr(Qs + s * T::PANELS * DKV_BQ * 64);
+      const uint32_t do_addr = smem_addr(dOs + s * T::PANELS * DKV_BQ * 64);
+      float st[32], dpt[32], p[32];
+      hopper::wgmma_fence();
+      issue_t(st, k_addr, q_addr);                     // S^T = K Q^T (64 keys x 64 queries)
+      hopper::wgmma_wait<0>();                         // and the previous tile's dV, dK
+      hopper::fence_regs(st);
+      if (i > jlo - lo) hopper::mbar_arrive(&empty[(i - 1) % T::STAGES]);
+      hopper::wgmma_fence();
+      issue_t(dpt, v_addr, do_addr);                   // dP^T = V dO^T, while P^T is formed
+      const bool inner = kw + 63 <= q0 + a.causal_shift && kw + 64 <= a.Skv &&
+                         q0 + DKV_BQ <= a.Sq &&
+                         (a.window <= 0 || kw > q0 + DKV_BQ - 1 + a.causal_shift - a.window);
+      if (inner) p_as(false, st, p, lss + s * DKV_BQ, q0);
+      else p_as(true, st, p, lss + s * DKV_BQ, q0);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dpt);
+      // dS^T = P^T (dP^T - delta) scale
+      const float* dl = dls + s * DKV_BQ;
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < 8; ++j) {
+        const float2 dv2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * c);
+        const float ds0 = p[4 * j] * (dpt[4 * j] - dv2.x) * a.scale;
+        const float ds1 = p[4 * j + 1] * (dpt[4 * j + 1] - dv2.y) * a.scale;
+        const float ds2 = p[4 * j + 2] * (dpt[4 * j + 2] - dv2.x) * a.scale;
+        const float ds3 = p[4 * j + 3] * (dpt[4 * j + 3] - dv2.y) * a.scale;
+        da[j / 2][(j & 1) * 2] = pack_bf16(ds0, ds1);
+        da[j / 2][(j & 1) * 2 + 1] = pack_bf16(ds2, ds3);
+      }
+
+      // dV += P^T dO and dK += dS^T Q: 4 k16 steps over the queries; dO and
+      // Q are MN-major, their panels DKV_BQ rows apart
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4];
-      ldmatrix_x4(ka, Kw + kk * 16);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = hopper::desc_sw128(do_addr + kk * 16 * 128, DKV_BQ * 128, 1024);
+        if constexpr (D == 64) hopper::wgmma_rs_n64<1>(dv, pa[kk], db, 1);
+        else hopper::wgmma_rs_n128<1>(dv, pa[kk], db, 1);
+      }
 #pragma unroll
-      for (int j = 0; j < BQ / 8; j += 2) {
-        uint32_t bq[4];
-        ldmatrix_x4(bq, Qt + (8 * j + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
-        mma_bf16(s[j], ka, bq[0], bq[1]);
-        mma_bf16(s[j + 1], ka, bq[2], bq[3]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = hopper::desc_sw128(q_addr + kk * 16 * 128, DKV_BQ * 128, 1024);
+        if constexpr (D == 64) hopper::wgmma_rs_n64<1>(dk, da[kk], db, 1);
+        else hopper::wgmma_rs_n128<1>(dk, da[kk], db, 1);
+      }
+      hopper::wgmma_commit();                          // left running
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    if (jlo < jhi) hopper::mbar_arrive(&empty[(i - 1) % T::STAGES]);
+    for (; i < n; ++i) {                               // tiles past the last query that sees them
+      hopper::mbar_wait(&full[i % T::STAGES], (i / T::STAGES) & 1);
+      hopper::mbar_arrive(&empty[i % T::STAGES]);
+    }
+
+    // this query head's partial dk and dv, f32 (zeros when no q tile was live)
+    const long long plane = (long long)a.B * a.H * a.Skv * D;
+    float* pk = p.part + (((long long)b * a.H + h) * a.Skv) * D;
+    float* pv = pk + plane;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * c;
+      if (kr0 < a.Skv) {
+        *reinterpret_cast<float2*>(pk + (long long)kr0 * D + col) = make_float2(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<float2*>(pv + (long long)kr0 * D + col) = make_float2(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (kr1 < a.Skv) {
+        *reinterpret_cast<float2*>(pk + (long long)kr1 * D + col) = make_float2(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<float2*>(pv + (long long)kr1 * D + col) = make_float2(dv[4 * j + 2], dv[4 * j + 3]);
       }
     }
-    // P^T = exp(S^T scale - lse) on visible pairs
-    const bool inner = interior(a, q0, k0);
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = e < 2 ? kr0 : kr1;
-        const int qc = 8 * j + 2 * t + (e & 1);
-        s[j][e] = (inner || visible_q(a, q0 + qc, key)) ? exp2f(s[j][e] * sl2 - ls[qc]) : 0.f;
-      }
-    }
-    // dV += P^T dO: P^T's accumulator layout is the A layout; dO B-fragments
-    // from ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bd[4];
-        ldmatrix_x4_trans(bd, dOt + (16 * kk + (mi & 1) * 8 + mr) * LD + 8 * n + (mi >> 1) * 8);
-        mma_bf16(dv[n], pa, bd[0], bd[1]);
-        mma_bf16(dv[n + 1], pa, bd[2], bd[3]);
-      }
-    }
-    // dP^T = V dO^T
-    float dp[BQ / 8][4];
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t va[4];
-      ldmatrix_x4(va, Vw + kk * 16);
-#pragma unroll
-      for (int j = 0; j < BQ / 8; j += 2) {
-        uint32_t bd[4];
-        ldmatrix_x4(bd, dOt + (8 * j + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
-        mma_bf16(dp[j], va, bd[0], bd[1]);
-        mma_bf16(dp[j + 1], va, bd[2], bd[3]);
-      }
-    }
-    // dS^T = P^T (dP^T - delta) scale, in dp
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = 8 * j + 2 * t + (e & 1);
-        dp[j][e] = s[j][e] * (dp[j][e] - dl[qc]) * a.scale;
-      }
-    }
-    // dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                        pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                        pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                        pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bq[4];
-        ldmatrix_x4_trans(bq, Qt + (16 * kk + (mi & 1) * 8 + mr) * LD + 8 * n + (mi >> 1) * 8);
-        mma_bf16(dk[n], pa, bq[0], bq[1]);
-        mma_bf16(dk[n + 1], pa, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();                             // tiles consumed: buffer is free
   }
-  cp_async_wait<0>();                            // the K/V copy, when no q tile was live
+}
 
-  bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dk_sb + kh * a.dk_sh;
-  bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dv_sb + kh * a.dv_sh;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (kr0 < a.Skv) {
-      *reinterpret_cast<uint32_t*>(dkp + kr0 * a.dk_ss + c) = pack_bf16(dk[n][0], dk[n][1]);
-      *reinterpret_cast<uint32_t*>(dvp + kr0 * a.dv_ss + c) = pack_bf16(dv[n][0], dv[n][1]);
-    }
-    if (kr1 < a.Skv) {
-      *reinterpret_cast<uint32_t*>(dkp + kr1 * a.dk_ss + c) = pack_bf16(dk[n][2], dk[n][3]);
-      *reinterpret_cast<uint32_t*>(dvp + kr1 * a.dv_ss + c) = pack_bf16(dv[n][2], dv[n][3]);
-    }
+// dk, dv = the sums of the G partials of each KV head, g = 0 .. G-1 in order,
+// in bf16 through their strides.  Thread: 4 columns of one (b, kv head, key)
+// row; blockIdx.y: 0 = dk, 1 = dv.
+__global__ void __launch_bounds__(256) dkv_reduce(const float* part, BwdArgs a, int D) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  const int cq = D / 4;
+  const long long rows = (long long)a.B * a.KVH * a.Skv;
+  if (i >= rows * cq) return;
+  const int col = (int)(i % cq) * 4;
+  const long long r = i / cq;
+  const int key = (int)(r % a.Skv), kh = (int)((r / a.Skv) % a.KVH), b = (int)(r / ((long long)a.Skv * a.KVH));
+  const int G = a.H / a.KVH;
+  const float* src = part + (long long)blockIdx.y * a.B * a.H * a.Skv * D +
+                     (((long long)b * a.H + kh * G) * a.Skv + key) * D + col;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int g = 1; g < G; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(src + (long long)g * a.Skv * D);
+    acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
   }
+  __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(blockIdx.y == 0 ? a.dk : a.dv);
+  const long long sb = blockIdx.y == 0 ? a.dk_sb : a.dv_sb;
+  const long long sh = blockIdx.y == 0 ? a.dk_sh : a.dv_sh;
+  const long long ss = blockIdx.y == 0 ? a.dk_ss : a.dv_ss;
+  uint2 out;
+  out.x = pack_bf16(acc.x, acc.y);
+  out.y = pack_bf16(acc.z, acc.w);
+  *reinterpret_cast<uint2*>(dst + b * sb + kh * sh + key * ss + col) = out;
+}
+
+template <int D>
+int launch_dkv_bf16(const BwdArgs& a, float* part, cudaStream_t st) {
+  DkvParams p;
+  p.a = a;
+  p.part = part;
+  if (!hopper::make_map(&p.tq, a.q, a.B, a.H, a.Sq, D, a.q_sb, a.q_sh, a.q_ss, DKV_BQ) ||
+      !hopper::make_map(&p.tdo, a.dout, a.B, a.H, a.Sq, D, a.do_sb, a.do_sh, a.do_ss, DKV_BQ) ||
+      !hopper::make_map(&p.tk, a.k, a.B, a.KVH, a.Skv, D, a.k_sb, a.k_sh, a.k_ss, DKV_BK) ||
+      !hopper::make_map(&p.tv, a.v, a.B, a.KVH, a.Skv, D, a.v_sb, a.v_sh, a.v_ss, DKV_BK))
+    return 1001;
+  dim3 grid(a.H, (a.Skv + DKV_BK - 1) / DKV_BK, a.B);
+  int e = launch(dkv_bf16<D>, grid, 384, DkvTile<D>::SMEM, st, p);
+  if (e) return e;
+  const long long n = (long long)a.B * a.KVH * a.Skv * (D / 4);
+  dkv_reduce<<<dim3((unsigned)((n + 255) / 256), 2), 256, 0, st>>>(part, a, D);
+  return cudaGetLastError();
 }
 
 // --------------------------------------------------------------- f32: FMAs
@@ -740,8 +868,10 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v, const void
 }
 
 // dk, dv (written through their strides); reads the delta that fa_bwd_dq wrote.
+// bf16: `part` is f32 scratch of 2 * B * H * Skv * D elements (the per-query-
+// head partials); f32: unused.  1001 if cuTensorMapEncodeTiled refuses a map.
 extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* delta, void* dk, void* dv,
+                          const float* lse, const float* delta, void* dk, void* dv, float* part,
                           int B, int H, int KVH, int Sq, int Skv, int D,
                           long long q_sb, long long q_sh, long long q_ss,
                           long long k_sb, long long k_sh, long long k_ss,
@@ -756,14 +886,13 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v, const voi
             q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, 0, 0, 0,
             do_sb, do_sh, do_ss, 0, 0, 0, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss,
             window, causal_shift, 1.0f / sqrtf((float)D)};
-  dim3 grid((Skv + BK - 1) / BK, KVH, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    // K and V tiles, Q and dO tiles double-buffered, lse and delta double-buffered
-    auto smem = [](int d) { return (size_t)(6 * BK * (d + 8)) * 2 + 4 * BQ * 4; };
-    if (D == 64) return launch(dkv_bf16<64>, grid, 128, smem(64), st, a);
-    if (D == 128) return launch(dkv_bf16<128>, grid, 128, smem(128), st, a);
+    if (part == nullptr) return 1000;
+    if (D == 64) return launch_dkv_bf16<64>(a, part, st);
+    if (D == 128) return launch_dkv_bf16<128>(a, part, st);
   } else if (dtype == 0) {
+    dim3 grid((Skv + BK - 1) / BK, KVH, B);
     auto smem = [](int d) {
       return (size_t)(2 * BK * (d + 1) + 2 * d * (BQ + 1) + 2 * BK * (BQ + 1) + 2 * BQ) * 4;
     };

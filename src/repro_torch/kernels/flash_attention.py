@@ -151,10 +151,12 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, window=None, causal_shift=0):
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, window=None, causal_shift=0):
     """Second part of the backward: (dk, dv) (B,KVH,Skv,D), summed over the G
-    query heads of each KV head.
+    query heads of each KV head (in a fixed order: two calls give the same
+    bits).
 
-    CPU tensors go to the plain version; CUDA tensors launch the kernel
-    (counted in ``flash_attention_bwd_dkv.launches``) or raise.
+    CPU tensors go to the plain version; CUDA tensors launch the kernel and
+    its reduction pass, one call counted once in
+    ``flash_attention_bwd_dkv.launches``, or raise.
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window, causal_shift)
@@ -163,9 +165,14 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, window=None, causal_shif
     _check_rowstat(fn, "lse", lse, q)
     _check_rowstat(fn, "delta", delta, q)
     dk, dv = _heads_major(B, Skv, KVH, D, k), _heads_major(B, Skv, KVH, D, v)
-    _run(_bind("flash_attention_bwd", "fa_bwd_dkv", 8, 6), fn,
+    # bf16: each query head's f32 partial dk and dv, which the kernel's second
+    # pass adds up per KV head in a fixed order
+    part = (torch.empty((2, B, H, Skv, D), dtype=torch.float32, device=q.device)
+            if q.dtype == torch.bfloat16 else None)
+    _run(_bind("flash_attention_bwd", "fa_bwd_dkv", 9, 6), fn,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
          lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+         None if part is None else part.data_ptr(),
          B, H, KVH, Sq, Skv, D,
          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
          *dk.stride()[:3], *dv.stride()[:3],

@@ -44,18 +44,35 @@ def _heads_major(x, seq_major):
     return x.transpose(1, 2).contiguous().transpose(1, 2) if seq_major else x
 
 
+# (B, H, KVH, Sq, Skv, window, causal shift): the first rows at Sq = 200; then
+# the edges of the kernels' tiles (64 and 128 rows, 64 and 128 keys): one
+# row, 63, 129, 191 and 777 rows or keys, a window that cuts a tile in the
+# middle, a causal shift with Sq < Skv, and G = H / KVH of 1, 6 and 10.
+ATTN_SHAPES = [
+    (2, 12, 2, 200, 200, None, 0),
+    (2, 12, 2, 200, 200, 50, 0),
+    (2, 12, 2, 200, 237, None, 37),
+    (2, 6, 6, 1, 1, None, 0),
+    (1, 6, 1, 63, 63, None, 0),
+    (2, 10, 1, 129, 129, 100, 0),
+    (1, 12, 2, 191, 777, None, 586),
+    (2, 4, 2, 777, 777, 100, 0),
+    (1, 6, 1, 777, 191, None, 0),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("window,shift", [(None, 0), (50, 0), (None, 37)])
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,window,shift", ATTN_SHAPES)
 @pytest.mark.parametrize("seq_major", [False, True])
-def test_cuda_flash_attention_matches_plain(dt, D, window, shift, seq_major):
+def test_cuda_flash_attention_matches_plain(dt, D, B, H, KVH, Sq, Skv, window, shift,
+                                            seq_major):
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(0)
-    B, H, KVH, Sq = 2, 12, 2, 200
     mk = lambda *s: _heads_major(torch.randn(*s, generator=g, device=dev).to(TDT[dt]),
                                  seq_major)
-    q, k, v = mk(B, H, Sq, D), mk(B, KVH, Sq + shift, D), mk(B, KVH, Sq + shift, D)
+    q, k, v = mk(B, H, Sq, D), mk(B, KVH, Skv, D), mk(B, KVH, Skv, D)
     n0 = flash_attention_fwd.launches
     o, lse = flash_attention_fwd(q, k, v, window=window, causal_shift=shift)
     ro, rlse = ref.flash_attention_ref(q, k, v, window=window, causal_shift=shift)
@@ -103,6 +120,16 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     pos = torch.zeros(1, 16, device=dev, dtype=torch.int32)
     with pytest.raises(ValueError, match="head dim"):
         flash_decode(q, kv, kv, pos, pos[:, 0].contiguous())
+    q = _misaligned(dev, (1, 4, 16, 64))      # TMA needs a 16-byte aligned base
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_fwd(q, q[:, :2], q[:, :2])
+
+
+def _misaligned(dev, shape):
+    """A bf16 tensor whose strides are multiples of 8 elements but whose data
+    starts 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, device=dev, dtype=torch.bfloat16)[1:1 + n].view(shape)
 
 
 def _scaled_err(got, want):
@@ -113,15 +140,16 @@ def _scaled_err(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("window,shift", [(None, 0), (50, 0), (None, 37), (70, 21)])
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,window,shift",
+                         ATTN_SHAPES + [(2, 12, 2, 200, 221, 70, 21)])
 @pytest.mark.parametrize("seq_major", [False, True])
-def test_cuda_flash_attention_bwd_matches_plain(dt, D, window, shift, seq_major):
+def test_cuda_flash_attention_bwd_matches_plain(dt, D, B, H, KVH, Sq, Skv, window, shift,
+                                                seq_major):
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(1)
-    B, H, KVH, Sq = 2, 12, 2, 200
     mk = lambda *s: _heads_major(torch.randn(*s, generator=g, device=dev).to(TDT[dt]),
                                  seq_major)
-    q, k, v = mk(B, H, Sq, D), mk(B, KVH, Sq + shift, D), mk(B, KVH, Sq + shift, D)
+    q, k, v = mk(B, H, Sq, D), mk(B, KVH, Skv, D), mk(B, KVH, Skv, D)
     do = mk(B, H, Sq, D)
     o, lse = ref.flash_attention_ref(q, k, v, window=window, causal_shift=shift)
     n_dq, n_dkv = flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches
@@ -173,6 +201,26 @@ def test_cuda_bwd_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(1, 4, 16, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, q[:, :2], q[:, :2], q, lse.double(), q)
+    q = _misaligned(dev, (1, 4, 16, 64))      # TMA needs a 16-byte aligned base
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bwd(q, q[:, :2], q[:, :2], q, lse, q)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_dkv_is_deterministic():
+    """dk/dv sums each KV head's G query-head partials in a fixed order, with
+    no atomics: two calls on the same inputs give the same bits."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, H, KVH, S, D = 2, 12, 2, 1000, 128
+    q, do = (torch.randn(B, H, S, D, generator=g, device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, KVH, S, D, generator=g, device=dev).bfloat16() for _ in range(2))
+    o, lse = ref.flash_attention_ref(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    first = flash_attention_bwd_dkv(q, k, v, lse, delta, do)
+    second = flash_attention_bwd_dkv(q, k, v, lse, delta, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
