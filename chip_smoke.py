@@ -13,8 +13,9 @@ Phases (any failure exits non-zero and prints no result line):
               at the serving and training shapes (forward kernels: bf16
               within 2e-2, f32 within 2e-5 with TF32 off; backward kernels:
               bf16 within 2e-2 and f32 within 5e-5 of each call's
-              max(1, max|plain grad|)), check that two dk/dv runs at the
-              training shape give the same bits, and time kernel, plain
+              max(1, max|plain grad|)), check that two dq and two dk/dv
+              runs at the training shape, and two WKV runs at rwkv6-7b's
+              prefill shape, give the same bits, and time kernel, plain
               version and one PyTorch library call on the same work, with
               the kernel's achieved TFLOP/s (the library call is
               a yardstick only; the port never calls it).  The kernels of
@@ -160,17 +161,34 @@ class Timer:
 
 
 def kernel_name(mangled: str) -> str:
-    """``fwd_bf16<128>`` from the Itanium name of a kernel in an anonymous
-    namespace (length-prefixed components, one int template argument)."""
-    i, names = mangled.find("N") + 1, []
-    while 0 < i < len(mangled) and mangled[i].isdigit():
+    """``fwd_bf16<128>`` or ``wkv_chunk_out<__nv_bfloat16, 64>`` from the
+    Itanium name of a kernel in an anonymous namespace (length-prefixed
+    components; template arguments that are int literals, named types or
+    ``float``)."""
+    def ident(i):
         j = i
         while mangled[j].isdigit():
             j += 1
-        names.append(mangled[j:j + int(mangled[i:j])])
-        i = j + int(mangled[i:j])
-        if mangled.startswith("ILi", i):
-            return f"{names[-1]}<{mangled[i + 3:mangled.index('E', i)]}>"
+        return mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+
+    i, names = mangled.find("N") + 1, []
+    while 0 < i < len(mangled) and mangled[i].isdigit():
+        name, i = ident(i)
+        names.append(name)
+        if mangled.startswith("I", i):
+            i, args = i + 1, []
+            while i < len(mangled) and mangled[i] != "E":
+                if mangled.startswith("Li", i):
+                    j = mangled.index("E", i)
+                    args.append(mangled[i + 2:j])
+                    i = j + 1
+                elif mangled[i].isdigit():
+                    arg, i = ident(i)
+                    args.append(arg)
+                else:
+                    args.append({"f": "float", "i": "int"}.get(mangled[i], mangled[i]))
+                    i += 1
+            return f"{names[-1]}<{', '.join(args)}>"
     return names[-1] if names else mangled
 
 
@@ -323,17 +341,22 @@ def check_flash_attention_bwd(gen, dev, timer):
     q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, H, KVH, S, S, D)
     do = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
     o, lse = ref.flash_attention_ref(q, k, v)
-    _, delta = flash_attention_bwd_dq(q, k, v, o, lse, do)
-    # dk/dv adds each KV head's query-head partials in a fixed order: two runs
-    # must give the same bits
-    runs = [flash_attention_bwd_dkv(q, k, v, lse, delta, do) for _ in range(2)]
+    # dq keeps its sum in registers and writes it once, dk/dv adds each KV
+    # head's query-head partials in a fixed order: two runs of each must give
+    # the same bits
+    dq_runs = [flash_attention_bwd_dq(q, k, v, o, lse, do) for _ in range(2)]
+    delta = dq_runs[0][1]
+    dkv_runs = [flash_attention_bwd_dkv(q, k, v, lse, delta, do) for _ in range(2)]
     torch.cuda.synchronize()
-    bit_equal = all(torch.equal(a, b) for a, b in zip(*runs))
-    print(f"flash_attention_bwd_dkv at B={B} H={H} KVH={KVH} S={S} D={D}: two runs "
-          f"{'bit-equal' if bit_equal else 'DIFFER'}", flush=True)
-    if not bit_equal:
-        fail("flash_attention_bwd_dkv is not deterministic")
-    del runs
+    bit_equal = {}
+    for name, runs in (("flash_attention_bwd_dq", dq_runs),
+                       ("flash_attention_bwd_dkv", dkv_runs)):
+        bit_equal[name] = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"{name} at B={B} H={H} KVH={KVH} S={S} D={D}: two runs "
+              f"{'bit-equal' if bit_equal[name] else 'DIFFER'}", flush=True)
+        if not bit_equal[name]:
+            fail(f"{name} is not deterministic")
+    del dq_runs, dkv_runs
     qx, kx, vx = (t.detach().requires_grad_() for t in
                   (q, k.repeat_interleave(H // KVH, 1), v.repeat_interleave(H // KVH, 1)))
     out = torch.nn.functional.scaled_dot_product_attention(qx, kx, vx, is_causal=True)
@@ -357,8 +380,7 @@ def check_flash_attention_bwd(gen, dev, timer):
                "library_ms": library_ms, "max_abs_err": worst[name]}
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
         row["tflops"] = flops / row["ms"] / 1e9
-        if name == "flash_attention_bwd_dkv":
-            row["bit_equal_runs"] = bit_equal
+        row["bit_equal_runs"] = bit_equal[name]
         print(f"{name} work at B={B} H={H} KVH={KVH} S={S} D={D} bf16 causal: "
               f"{n_mm} products, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; kernel "
               f"{row['ms']:.4f} ms ({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain "
@@ -631,6 +653,16 @@ def check_rwkv6_wkv(gen, dev, timer):
         del x, o, state, ro, rstate
     B, H, S, hs = 1, 64, 3000, 64
     x = wkv_inputs(gen, dev, torch.bfloat16, B, H, S, hs)
+    # every pass sums in a fixed order, with no atomics: two runs must give
+    # the same bits
+    runs = [rwkv6_wkv(*x) for _ in range(2)]
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"rwkv6_wkv at B={B} H={H} S={S} hs={hs} bf16: two runs "
+          f"{'bit-equal' if bit_equal else 'DIFFER'}", flush=True)
+    if not bit_equal:
+        fail("rwkv6_wkv is not deterministic")
+    del runs
     row = {"ms": timer.ms(lambda: rwkv6_wkv(*x), iters=10),
            "plain_ms": timer.ms(lambda: ref.rwkv6_wkv_ref(*x), iters=2),
            "library_ms": None}
@@ -644,6 +676,8 @@ def check_rwkv6_wkv(gen, dev, timer):
           f"({row['bound_by']})", flush=True)
     row["max_abs_err"] = worst_abs
     row["max_rel_err"] = worst_rel
+    row["bit_equal_runs"] = bit_equal
+    row["gb_per_s"] = nbytes / row["ms"] / 1e6
     return row
 
 
@@ -669,8 +703,9 @@ def teacher_forced(api, cfg, params, policy, req, dev, n_steps=8):
 # kernel-name marks of the device-time kinds a profile reports
 PROFILE_KINDS = (
     ("attention kernels", ("fwd_bf16", "fwd_f32", "dq_bf16", "dq_f32", "dkv_bf16",
-                           "dkv_f32", "decode_partial", "decode_combine")),
-    ("recurrence kernels", ("rglru_scan_kernel", "wkv_kernel")),
+                           "dkv_f32", "dkv_reduce", "decode_partial", "decode_combine")),
+    ("recurrence kernels", ("rglru_scan_kernel", "wkv_chunk_state", "wkv_state_scan",
+                            "wkv_chunk_out")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("copy/fill", ("Memcpy", "Memset", "copy_", "fill")),
     ("elementwise/reduce", ("elementwise", "reduce", "softmax", "Reduce")),
@@ -680,8 +715,9 @@ PROFILE_KINDS = (
 def device_profile(run, n_steps):
     """torch.profiler over ``run()`` (which does ``n_steps`` steps): wall ms
     per step, device-busy ms per step (None when the profiler records no
-    device time), and as a string the device time by kind, the top kernels
-    and the host ops with the most self host time.
+    device time), and as a string the device time by kind, each of the
+    port's kernels, the top kernels and the host ops with the most self host
+    time.
 
     Busy time sums the device-side events (kernels, copies, fills) alone:
     a host-side op's "self device time" is the time of the kernels it
@@ -704,13 +740,16 @@ def device_profile(run, n_steps):
     host.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     rows.sort(reverse=True)
-    kinds = {}
-    for ms, _, k in rows:
+    kinds, port = {}, []
+    for ms, n, k in rows:
         kind = next((name for name, marks in PROFILE_KINDS if any(m in k for m in marks)),
                     "other")
         kinds[kind] = kinds.get(kind, 0.0) + ms
+        if kind in ("attention kernels", "recurrence kernels"):
+            port.append(f"{k.split('::', 1)[-1].split('(')[0]} {ms:.3f} ms x{n}")
     top = ("by kind " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in
                                   sorted(kinds.items(), key=lambda x: -x[1]))
+           + "; port kernels " + ("; ".join(port) or "none")
            + "; top kernels " + "; ".join(f"{k[:70]} {ms:.3f} ms x{n}"
                                           for ms, n, k in rows[:12])
            + f"; host ops {sum(n for _, n, _ in host)}, top by self host time "

@@ -14,11 +14,25 @@
 // (dq_f32, dkv_f32) use FMAs so that they keep full f32 accuracy (the tensor
 // cores would give TF32).
 //
-// dq    (dq_bf16) one block of 4 warps per (b, h, 64-row q tile), walking the
-//       live KV tiles with mma.sync m16n8k16, ldmatrix and cp.async double
-//       buffering.  It first computes delta = rowsum(dO * O) for its rows
-//       (the reference does this outside its Pallas kernels) and writes it
-//       for dk/dv.
+// dq    (dq_bf16) one block of 384 threads per (b, query head h, 128-row q
+//       tile), heaviest q tiles first, as the forward: 384 blocks at the
+//       training shape.  Warpgroup 0 is the producer (24 registers): one
+//       thread loads the block's Q and dO tiles once and then the live
+//       64-key K and V tiles with TMA into a ring of four slots, guarded by
+//       full and empty mbarriers.  Warpgroups 1 and 2 (240 registers) own
+//       64 query rows each.  Each first computes delta = rowsum(dO * O) for
+//       its rows (the reference does this outside its Pallas kernels),
+//       writes it for dk/dv and keeps it in registers; then, per KV tile,
+//       S = Q K^T and dP = dO V^T with wgmma m64n64k16 (A = Q or dO, B = K
+//       or V, all K-major from shared memory), P = 2^(S scale log2e - lse
+//       log2e) (masked on the diagonal and window-edge tiles only) and
+//       dS = P (dP - delta) scale in registers, and dQ += dS K with dS as
+//       the register A fragment and K read MN-major through the transpose
+//       flag.  S and dP of a tile are issued ahead of the previous tile's dQ
+//       product, so dS is formed while the tensor cores still work.  64-key
+//       tiles keep dQ (64 x D f32), S, dP and the dS fragment within the
+//       consumers' registers.  dQ stays in registers for the whole walk and
+//       is written once: no atomics, so two runs give the same bits.
 // dk/dv (dkv_bf16, then dkv_reduce) reads the delta that dq wrote, so it is
 //       launched after dq on the same stream.  The Pallas kernel walks the G
 //       query heads of a KV head and its q tiles along a sequential grid axis,
@@ -85,189 +99,286 @@ __device__ __forceinline__ void q_tile_range(const BwdArgs& a, int k0, int& lo, 
   if (hi < lo) hi = lo;
 }
 
-// Every (query, key) pair of the tiles at q0 and k0 is visible and in range.
-__device__ __forceinline__ bool interior(const BwdArgs& a, int q0, int k0) {
-  return k0 + BK - 1 <= q0 + a.causal_shift && k0 + BK <= a.Skv && q0 + BQ <= a.Sq &&
-         (a.window <= 0 || k0 > q0 + BQ - 1 + a.causal_shift - a.window);
-}
-
 __device__ __forceinline__ bool visible_q(const BwdArgs& a, int row, int col) {
   return row < a.Sq && visible(a, row, col);
 }
 
-// ------------------------------------------------------------ bf16: mma.sync
+// ------------------------------------------ dq bf16: TMA, wgmma, warp-specialised
 
-// 4 warps; warp w owns query rows q0 + 16w .. +15; lane = 4*g + t holds rows
-// g and g+8 of each m16n8 accumulator tile.  Q stays in registers (A
-// fragments); dO is staged once in shared memory; K and V tiles are
-// double-buffered with cp.async.
+constexpr int DQ_BQ = 128;         // query rows per block: two consumer warpgroups of 64
+constexpr int DQ_BK = 64;          // keys per K/V tile
+
 template <int D>
-__global__ void __launch_bounds__(128) dq_bf16(BwdArgs a) {
-  constexpr int LD = D + 8;                      // padded smem row, as the forward
-  constexpr int TILE = BK * LD;
-  constexpr int CH = D / 8;                      // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][BK][LD]
-  __nv_bfloat16* Vs = Ks + 2 * TILE;                                // [2][BK][LD]
-  __nv_bfloat16* dOs = Vs + 2 * TILE;                               // [BQ][LD]
-  float* dls = reinterpret_cast<float*>(dOs + BQ * LD);              // [BQ] delta
+struct DqTile {
+  static constexpr int PANELS = D / 64;                   // 128-byte panels per row
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BYTES = DQ_BQ * D * 2;           // the Q or the dO tile
+  static constexpr int KV_BYTES = DQ_BK * D * 2;          // one K or one V tile
+  static constexpr int SMEM = 2 * Q_BYTES + STAGES * 2 * KV_BYTES + 1024 + 128;
+};
 
-  const int nq = (a.Sq + BQ - 1) / BQ;
-  const int qt = nq - 1 - blockIdx.x;            // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.KVH, kh = h / G;
-  const int q0 = qt * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;       // ldmatrix: matrix, row
+struct DqParams {
+  CUtensorMap tq, tdo;             // boxes of 64 columns by DQ_BQ rows
+  CUtensorMap tk, tv;              // boxes of 64 columns by DQ_BK rows
+  BwdArgs a;
+};
 
+template <int D>
+__global__ void __launch_bounds__(384, 1) dq_bf16(const __grid_constant__ DqParams p) {
+  using T = DqTile<D>;
   using bf16 = __nv_bfloat16;
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kh * a.k_sh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kh * a.v_sh;
-  const bf16* op = static_cast<const bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const bf16* dop = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const BwdArgs& a = p.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);          // [PANELS][DQ_BQ][64], swizzled
+  bf16* dOs = Qs + DQ_BQ * D;                        // [PANELS][DQ_BQ][64]
+  bf16* Ks = dOs + DQ_BQ * D;                        // [STAGES][PANELS][DQ_BK][64]
+  bf16* Vs = Ks + T::STAGES * DQ_BK * D;             // [STAGES][PANELS][DQ_BK][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + T::STAGES * DQ_BK * D);
+  uint64_t* q_full = bars;                           // Q and dO arrived
+  uint64_t* full = bars + 1;                         // [STAGES] K and V arrived
+  uint64_t* empty = bars + 1 + T::STAGES;            // [STAGES] both consumers done
 
-  for (int i = tid; i < BQ * CH; i += 128) {     // dO tile; rows past Sq are zeros
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool in = q0 + r < a.Sq;
-    cp_async16(dOs + r * LD + c, dop + (in ? q0 + r : 0) * a.do_ss + c, in ? 16 : 0);
-  }
-  cp_async_commit();
-
-  // delta = rowsum(dO * O) in f32; the CH threads of a row are adjacent lanes
-  const long long row_base = ((long long)b * a.H + h) * a.Sq;
-  for (int i = tid; i < BQ * CH; i += 128) {     // BQ * CH is a multiple of 128
-    const int r = i / CH, c = (i % CH) * 8;
-    float acc = 0.f;
-    if (q0 + r < a.Sq) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(op + (q0 + r) * a.o_ss + c);
-      const uint4 dv = *reinterpret_cast<const uint4*>(dop + (q0 + r) * a.do_ss + c);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 x = __bfloat1622float2(o2[e]), y = __bfloat1622float2(d2[e]);
-        acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < CH; off <<= 1) acc += __shfl_xor_sync(0xffffffff, acc, off);
-    if (i % CH == 0) {
-      dls[r] = acc;
-      if (q0 + r < a.Sq) a.delta[row_base + q0 + r] = acc;
-    }
-  }
-
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[D / 16][4];                        // Q A-fragments, as the forward
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    const uint32_t z = 0;
-    qa[kk][0] = r0 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r0 * a.q_ss + c) : z;
-    qa[kk][1] = r1 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r1 * a.q_ss + c) : z;
-    qa[kk][2] = r0 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r0 * a.q_ss + c + 8) : z;
-    qa[kk][3] = r1 < a.Sq ? *reinterpret_cast<const uint32_t*>(qp + r1 * a.q_ss + c + 8) : z;
-  }
-  // rows past Sq: lse 0 and zero Q and dO give finite P and zero dS
-  const float ls0 = r0 < a.Sq ? a.lse[row_base + r0] * LOG2E : 0.f;
-  const float ls1 = r1 < a.Sq ? a.lse[row_base + r1] * LOG2E : 0.f;
-  __syncthreads();                               // dls complete
-  const float dl0 = dls[warp * 16 + g], dl1 = dls[warp * 16 + g + 8];
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const float sl2 = a.scale * LOG2E;
-
-  auto load_tile = [&](int kb, int buf) {        // rows past Skv are zeros
-    const int k0 = kb * BK;
-    for (int i = tid; i < BK * CH; i += 128) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool in = k0 + r < a.Skv;
-      const long long row = in ? k0 + r : 0;
-      cp_async16(Ks + buf * TILE + r * LD + c, kp + row * a.k_ss + c, in ? 16 : 0);
-      cp_async16(Vs + buf * TILE + r * LD + c, vp + row * a.v_ss + c, in ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BQ;   // heaviest tiles first
+  const int kh = h / (a.H / a.KVH);
   int lo, hi;
-  kv_tile_range(a, q0, lo, hi);
-  if (lo < hi) load_tile(lo, 0);
-  for (int kb = lo; kb < hi; ++kb) {
-    const int k0 = kb * BK, buf = (kb - lo) & 1;
-    if (kb + 1 < hi) {
-      load_tile(kb + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + buf * TILE;
-    const bf16* Vt = Vs + buf * TILE;
+  kv_tile_range(a, q0, lo, hi, DQ_BQ, DQ_BK);
+  const int n = max(0, hi - lo);
 
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t da[4];                            // dO A-fragment
-      ldmatrix_x4(da, dOs + (warp * 16 + (mi & 1) * 8 + mr) * LD + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int j = 0; j < BK / 8; j += 2) {
-        uint32_t bk[4], bv[4];
-        ldmatrix_x4(bk, Kt + (8 * j + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
-        mma_bf16(s[j], qa[kk], bk[0], bk[1]);    // S = Q K^T
-        mma_bf16(s[j + 1], qa[kk], bk[2], bk[3]);
-        ldmatrix_x4(bv, Vt + (8 * j + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
-        mma_bf16(dp[j], da, bv[0], bv[1]);       // dP = dO V^T
-        mma_bf16(dp[j + 1], da, bv[2], bv[3]);
-      }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < T::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 256);             // every consumer thread
     }
-    // P = exp(S scale - lse) on visible pairs; dS = P (dP - delta) scale, in s
-    const bool inner = interior(a, q0, k0);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const float p = (inner || visible(a, row, col))
-                            ? exp2f(s[j][e] * sl2 - (e < 2 ? ls0 : ls1)) : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * a.scale;
-      }
-    }
-    // dQ += dS K: dS's accumulator layout is the A layout; K^T B-fragments
-    // come from ldmatrix.trans, as V's in the forward's P V.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4_trans(bk, Kt + (16 * kk + (mi & 1) * 8 + mr) * LD + 8 * n + (mi >> 1) * 8);
-        mma_bf16(acc[n], pa, bk[0], bk[1]);
-        mma_bf16(acc[n + 1], pa, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();                             // tile consumed: its buffer is free
+    hopper::mbar_fence_init();
   }
-  cp_async_wait<0>();                            // the dO copy, when no tile was live
+  __syncthreads();
 
-  bf16* dqp = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+  // warpgroup 0 produces, 1 and 2 consume; the role must be provably
+  // warp-uniform and the two paths must not rejoin, or ptxas ignores
+  // setmaxnreg and holds the consumers to the launch's 168 registers
+  const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  if (role == 0) {
+    // ---- producer: one thread keeps the TMA loads in flight
+    hopper::setmaxnreg_dec<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == 0 && n > 0) {
+      hopper::mbar_arrive_expect(q_full, 2 * T::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (r0 < a.Sq) *reinterpret_cast<uint32_t*>(dqp + r0 * a.dq_ss + c) = pack_bf16(acc[n][0], acc[n][1]);
-    if (r1 < a.Sq) *reinterpret_cast<uint32_t*>(dqp + r1 * a.dq_ss + c) = pack_bf16(acc[n][2], acc[n][3]);
+      for (int pn = 0; pn < T::PANELS; ++pn) {
+        hopper::tma_load(Qs + pn * DQ_BQ * 64, &p.tq, q_full, pn * 64, q0, h, b);
+        hopper::tma_load(dOs + pn * DQ_BQ * 64, &p.tdo, q_full, pn * 64, q0, h, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % T::STAGES;
+        hopper::mbar_wait(&empty[s], ((i / T::STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect(&full[s], 2 * T::KV_BYTES);
+        const int k0 = (lo + i) * DQ_BK;
+#pragma unroll
+        for (int pn = 0; pn < T::PANELS; ++pn) {
+          hopper::tma_load(Ks + (s * T::PANELS + pn) * DQ_BK * 64, &p.tk, &full[s], pn * 64, k0, kh, b);
+          hopper::tma_load(Vs + (s * T::PANELS + pn) * DQ_BK * 64, &p.tv, &full[s], pn * 64, k0, kh, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63
+    hopper::setmaxnreg_inc<hopper::CONSUMER_REGS>();
+    const int cw = role - 1;                           // warp-uniform, as ptxas must see it
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int qw = q0 + 64 * cw;                       // this warpgroup's first row
+    const int r0 = qw + 16 * warp + g, r1 = r0 + 8;
+    int wlo, whi;                                      // the tiles this warpgroup needs
+    kv_tile_range(a, qw, wlo, whi, 64, DQ_BK);
+    if (qw >= a.Sq) whi = wlo;                         // rows past Sq: nothing to compute
+    const float sl2 = a.scale * LOG2E;
+
+    // delta = rowsum(dO * O) of rows r0 and r1 in f32, from device memory
+    // (the block's dO tile is still in flight): the four threads of a row
+    // read its 16-byte chunks c, c + 4, ... and add across the quad.  It is
+    // written for dk/dv and kept in registers.
+    const long long base = ((long long)b * a.H + h) * a.Sq;
+    const bf16* op = static_cast<const bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+    const bf16* dop = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
+    auto rowdot = [&](int row) {
+      float acc = 0.f;
+      if (row < a.Sq) {
+#pragma unroll
+        for (int m = 0; m < D / 32; ++m) {
+          const int col = (c + 4 * m) * 8;
+          const uint4 ov = *reinterpret_cast<const uint4*>(op + row * a.o_ss + col);
+          const uint4 dv = *reinterpret_cast<const uint4*>(dop + row * a.do_ss + col);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = __bfloat1622float2(o2[e]), y = __bfloat1622float2(d2[e]);
+            acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffff, acc, 1);
+      acc += __shfl_xor_sync(0xffffffff, acc, 2);
+      return acc;
+    };
+    const float dl0 = rowdot(r0), dl1 = rowdot(r1);
+    if (c == 0) {
+      if (r0 < a.Sq) a.delta[base + r0] = dl0;
+      if (r1 < a.Sq) a.delta[base + r1] = dl1;
+    }
+    // rows past Sq: lse 0 and zero Q and dO give finite P and zero dS
+    const float nls0 = r0 < a.Sq ? -a.lse[base + r0] * LOG2E : 0.f;
+    const float nls1 = r1 < a.Sq ? -a.lse[base + r1] * LOG2E : 0.f;
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    // Per KV tile: S = Q K^T and dP = dO V^T (A = Q or dO, B = K or V, all
+    // K-major from shared memory); dS = P (dP - delta) scale in registers;
+    // dQ += dS K with dS as the register A fragment and K read MN-major
+    // through the transpose flag, so one K tile serves both of its products.
+    // Staggered as the forward's S and P V: S and dP of tile j are issued
+    // ahead of dQ += dS_{j-1} K_{j-1}, dS_j is formed while that product
+    // runs, and packed into the A fragments only after it has finished
+    // reading them.  The tiles [jlo, jhi) are walked as a first tile, a
+    // steady loop and a last dQ product, so that the same products are in
+    // flight at every point of the code (hopper_common.cuh).
+    const uint32_t q_addr = smem_addr(Qs) + 64 * cw * 128;
+    const uint32_t do_addr = smem_addr(dOs) + 64 * cw * 128;
+    const int jlo = max(lo, wlo), jhi = max(jlo, min(hi, whi));
+    uint32_t da[4][4];                                 // dS as bf16 A fragments
+
+    auto issue_sdp = [&](float (&st)[32], float (&dpt)[32], int s) {
+      const uint32_t k_addr = smem_addr(Ks + s * T::PANELS * DQ_BK * 64);
+      const uint32_t v_addr = smem_addr(Vs + s * T::PANELS * DQ_BK * 64);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qa = (kk / 4) * DQ_BQ * 128 + (kk % 4) * 32;
+        const uint32_t ka = (kk / 4) * DQ_BK * 128 + (kk % 4) * 32;
+        hopper::wgmma_ss_n64<0>(st, hopper::desc_sw128(q_addr + qa, 16, 1024),
+                                hopper::desc_sw128(k_addr + ka, 16, 1024), kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qa = (kk / 4) * DQ_BQ * 128 + (kk % 4) * 32;
+        const uint32_t ka = (kk / 4) * DQ_BK * 128 + (kk % 4) * 32;
+        hopper::wgmma_ss_n64<0>(dpt, hopper::desc_sw128(do_addr + qa, 16, 1024),
+                                hopper::desc_sw128(v_addr + ka, 16, 1024), kk);
+      }
+      hopper::wgmma_commit();
+    };
+    auto issue_dq = [&](int s) {                       // K MN-major, panels DQ_BK rows apart
+      const uint32_t k_addr = smem_addr(Ks + s * T::PANELS * DQ_BK * 64);
+#pragma unroll
+      for (int kk = 0; kk < DQ_BK / 16; ++kk) {
+        const uint64_t db = hopper::desc_sw128(k_addr + kk * 16 * 128, DQ_BK * 128, 1024);
+        if constexpr (D == 64) hopper::wgmma_rs_n64<1>(dq, da[kk], db, 1);
+        else hopper::wgmma_rs_n128<1>(dq, da[kk], db, 1);
+      }
+      hopper::wgmma_commit();
+    };
+    // dS = P (dP - delta) scale into st, P = 2^(S sl2 - lse log2e) on
+    // visible pairs (register 4j + e: row r0 or r1, key 8j + 2c + (e & 1)),
+    // masked on edge tiles only (masked is a literal at each call: the
+    // inlined copies fold it away)
+    auto ds_as = [&](bool masked, float (&st)[32], const float (&dpt)[32], int k0) {
+#pragma unroll
+      for (int j = 0; j < DQ_BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pv = hopper::ex2(fmaf(st[4 * j + e], sl2, e < 2 ? nls0 : nls1));
+          if (masked && !visible(a, e < 2 ? r0 : r1, k0 + 8 * j + 2 * c + (e & 1))) pv = 0.f;
+          st[4 * j + e] = pv * (dpt[4 * j + e] - (e < 2 ? dl0 : dl1)) * a.scale;
+        }
+      }
+    };
+    auto ds = [&](float (&st)[32], const float (&dpt)[32], int k0) {
+      const bool interior = k0 + DQ_BK - 1 <= qw + a.causal_shift && k0 + DQ_BK <= a.Skv &&
+                            (a.window <= 0 || k0 > qw + 63 + a.causal_shift - a.window);
+      if (interior) ds_as(false, st, dpt, k0);
+      else ds_as(true, st, dpt, k0);
+    };
+    auto pack_ds = [&](const float (&st)[32]) {
+#pragma unroll
+      for (int j = 0; j < DQ_BK / 8; ++j) {
+        da[j / 2][(j & 1) * 2] = pack_bf16(st[4 * j], st[4 * j + 1]);
+        da[j / 2][(j & 1) * 2 + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
+      }
+    };
+
+    if (n > 0) hopper::mbar_wait(q_full, 0);
+    int i = 0;
+    for (; lo + i < jlo; ++i) {                        // tiles with no key visible here
+      hopper::mbar_wait(&full[i % T::STAGES], (i / T::STAGES) & 1);
+      hopper::mbar_arrive(&empty[i % T::STAGES]);
+    }
+    if (jlo < jhi) {
+      int prev = i % T::STAGES;                        // first tile: S, dP and dS alone
+      hopper::mbar_wait(&full[prev], (i / T::STAGES) & 1);
+      {
+        float st[32], dpt[32];
+        hopper::wgmma_fence();
+        issue_sdp(st, dpt, prev);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(st);
+        hopper::fence_regs(dpt);
+        ds(st, dpt, (lo + i) * DQ_BK);
+        pack_ds(st);
+      }
+      for (++i; lo + i < jhi; ++i) {
+        const int s = i % T::STAGES;
+        hopper::mbar_wait(&full[s], (i / T::STAGES) & 1);
+        float st[32], dpt[32];
+        hopper::wgmma_fence();
+        issue_sdp(st, dpt, s);
+        issue_dq(prev);
+        hopper::wgmma_wait<1>();                       // S, dP done; dQ += dS K may run on
+        hopper::fence_regs(st);
+        hopper::fence_regs(dpt);
+        ds(st, dpt, (lo + i) * DQ_BK);
+        hopper::wgmma_wait<0>();                       // dQ holds the previous tile
+        hopper::fence_regs(dq);
+        hopper::mbar_arrive(&empty[prev]);
+        pack_ds(st);
+        prev = s;
+      }
+      hopper::wgmma_fence();                           // the last dQ product
+      issue_dq(prev);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+      hopper::mbar_arrive(&empty[prev]);
+    }
+    for (; i < n; ++i) {                               // tiles past the last visible key
+      hopper::mbar_wait(&full[i % T::STAGES], (i / T::STAGES) & 1);
+      hopper::mbar_arrive(&empty[i % T::STAGES]);
+    }
+
+    bf16* dqp = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * c;
+      if (r0 < a.Sq)
+        *reinterpret_cast<uint32_t*>(dqp + r0 * a.dq_ss + col) = pack_bf16(dq[4 * j], dq[4 * j + 1]);
+      if (r1 < a.Sq)
+        *reinterpret_cast<uint32_t*>(dqp + r1 * a.dq_ss + col) = pack_bf16(dq[4 * j + 2], dq[4 * j + 3]);
+    }
   }
+}
+
+template <int D>
+int launch_dq_bf16(const BwdArgs& a, cudaStream_t st) {
+  DqParams p;
+  p.a = a;
+  if (!hopper::make_map(&p.tq, a.q, a.B, a.H, a.Sq, D, a.q_sb, a.q_sh, a.q_ss, DQ_BQ) ||
+      !hopper::make_map(&p.tdo, a.dout, a.B, a.H, a.Sq, D, a.do_sb, a.do_sh, a.do_ss, DQ_BQ) ||
+      !hopper::make_map(&p.tk, a.k, a.B, a.KVH, a.Skv, D, a.k_sb, a.k_sh, a.k_ss, DQ_BK) ||
+      !hopper::make_map(&p.tv, a.v, a.B, a.KVH, a.Skv, D, a.v_sb, a.v_sh, a.v_ss, DQ_BK))
+    return 1001;
+  dim3 grid(a.H, (a.Sq + DQ_BQ - 1) / DQ_BQ, a.B);
+  return launch(dq_bf16<D>, grid, 384, DqTile<D>::SMEM, st, p);
 }
 
 // ------------------------------------------ dk/dv bf16: TMA, wgmma, warp-specialised
@@ -836,7 +947,8 @@ bool valid(int B, int H, int KVH, int Sq, int Skv) {
 // dtype: 0 = f32, 1 = bf16.  Each returns the cudaError_t of its launch
 // (0 = ok); 1000 for a shape or dtype the kernel does not take.
 
-// dq (written through its strides) and delta (B,H,Sq) f32.
+// dq (written through its strides) and delta (B,H,Sq) f32.  1001 if
+// cuTensorMapEncodeTiled refuses a map.
 extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, float* delta, void* dq,
                          int B, int H, int KVH, int Sq, int Skv, int D,
@@ -852,14 +964,12 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v, const void
             q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
             do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, 0, 0, 0, 0, 0, 0,
             window, causal_shift, 1.0f / sqrtf((float)D)};
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    // K and V tiles double-buffered, one dO tile, delta
-    auto smem = [](int d) { return (size_t)(5 * BK * (d + 8)) * 2 + BQ * 4; };
-    if (D == 64) return launch(dq_bf16<64>, grid, 128, smem(64), st, a);
-    if (D == 128) return launch(dq_bf16<128>, grid, 128, smem(128), st, a);
+    if (D == 64) return launch_dq_bf16<64>(a, st);
+    if (D == 128) return launch_dq_bf16<128>(a, st);
   } else if (dtype == 0) {
+    dim3 grid((Sq + BQ - 1) / BQ, H, B);
     auto smem = [](int d) { return (size_t)(2 * BQ * (d + 1) + 2 * d * (BK + 1) + BQ * (BK + 1)) * 4; };
     if (D == 64) return launch(dq_f32<64>, grid, 256, smem(64), st, a);
     if (D == 128) return launch(dq_f32<128>, grid, 256, smem(128), st, a);

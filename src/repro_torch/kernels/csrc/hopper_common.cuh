@@ -1,8 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels: TMA
 // tensor maps and loads, mbarriers, wgmma shared-memory descriptors and
-// products, and setmaxnreg.  Raw PTX, no CUTLASS.  The helpers that the
-// mma.sync kernels share (smem_addr, pack_bf16, launch) come from
-// attention_common.cuh.
+// products, and setmaxnreg.  Raw PTX, no CUTLASS.  smem_addr, pack_bf16 and
+// launch come from attention_common.cuh.
 //
 // Where trouble hides, and what these helpers fix:
 //

@@ -27,7 +27,7 @@ def _bind():
     fn = build.load("rwkv6").rwkv6_wkv
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 7 + [I] * 4 + [L] * 15 + [I, P]
+        fn.argtypes = [P] * 8 + [I] * 4 + [L] * 15 + [I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -36,7 +36,8 @@ def rwkv6_wkv(r, k, v, w_log, u):
     """(o (B,H,S,hs) f32, final state (B,H,hs,hs) f32).
 
     A CPU tensor goes to the plain version; a CUDA tensor launches the
-    kernel (and counts the launch in ``rwkv6_wkv.launches``) or raises.
+    kernel's three passes, one call counted once in ``rwkv6_wkv.launches``,
+    or raises.
     Inputs that require grad, with grad mode on, raise on every device.  The
     output is allocated in (B,S,H,hs) memory and returned as a (B,H,S,hs)
     view, the layout the model reads back.
@@ -73,10 +74,14 @@ def rwkv6_wkv(r, k, v, w_log, u):
     uf = u.float().contiguous()
     o = torch.empty((B, S, H, hs), dtype=torch.float32, device=r.device).permute(0, 2, 1, 3)
     state = torch.empty((B, H, hs, hs), dtype=torch.float32, device=r.device)
+    # each chunk's state increment and decay, which the kernel's second pass
+    # turns into the state entering the chunk, in place
+    nc = -(-S // CHUNK)
+    scratch = torch.empty(B * H * nc * (hs * hs + hs), dtype=torch.float32, device=r.device)
     fn = _bind()
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(), uf.data_ptr(),
-                 o.data_ptr(), state.data_ptr(), B, H, S, hs,
+                 o.data_ptr(), state.data_ptr(), scratch.data_ptr(), B, H, S, hs,
                  *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w_log.stride()[:3],
                  *o.stride()[:3], _DTYPES[r.dtype],
                  torch.cuda.current_stream(r.device).cuda_stream)

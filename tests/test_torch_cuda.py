@@ -137,11 +137,23 @@ def _scaled_err(got, want):
             max(1.0, want.float().abs().max().item())).item()
 
 
+# The edges of the dq kernel's tiles (128 query rows in two warpgroups of 64,
+# 64 keys): 127, 128 and 129 rows, 200 rows against 221 keys, windows 50 and
+# 70, causal shifts 21 and 173.
+BWD_SHAPES = ATTN_SHAPES + [
+    (2, 12, 2, 200, 221, 70, 21),
+    (1, 4, 2, 127, 127, None, 0),
+    (1, 4, 2, 128, 128, 50, 0),
+    (2, 4, 2, 129, 129, 70, 0),
+    (2, 6, 2, 200, 221, 50, 21),
+    (1, 4, 1, 48, 221, None, 173),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("B,H,KVH,Sq,Skv,window,shift",
-                         ATTN_SHAPES + [(2, 12, 2, 200, 221, 70, 21)])
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,window,shift", BWD_SHAPES)
 @pytest.mark.parametrize("seq_major", [False, True])
 def test_cuda_flash_attention_bwd_matches_plain(dt, D, B, H, KVH, Sq, Skv, window, shift,
                                                 seq_major):
@@ -224,6 +236,23 @@ def test_cuda_flash_attention_bwd_dkv_is_deterministic():
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_bwd_dq_is_deterministic():
+    """dq keeps its sum over the KV tiles in registers and writes it once,
+    with no atomics: two calls on the same inputs give the same bits (dq and
+    delta)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, H, KVH, S, D = 2, 12, 2, 1000, 128
+    q, do = (torch.randn(B, H, S, D, generator=g, device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, KVH, S, D, generator=g, device=dev).bfloat16() for _ in range(2))
+    o, lse = ref.flash_attention_ref(q, k, v)
+    first = flash_attention_bwd_dq(q, k, v, o, lse, do)
+    second = flash_attention_bwd_dq(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,S,W", [(3, 17, 32), (2, 50, 64), (1, 256, 128), (2, 300, 100),
                                    (1, 2000, 2560)])
 def test_cuda_rglru_scan_matches_plain(B, S, W):
@@ -256,7 +285,8 @@ def _wkv_inputs(dev, B, H, S, hs, dt, seq_major, decay_sd, seed=4):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("B,H,S,hs", [(2, 3, 70, 32), (1, 2, 64, 32), (1, 1, 130, 64),
-                                      (2, 4, 1, 64), (1, 8, 333, 64)])
+                                      (2, 4, 1, 64), (1, 8, 333, 64), (1, 2, 63, 64),
+                                      (1, 2, 65, 32), (1, 2, 4097, 64), (2, 64, 700, 64)])
 @pytest.mark.parametrize("seq_major", [False, True])
 @pytest.mark.parametrize("decay_sd", [1.0, 3.0])
 def test_cuda_rwkv6_wkv_matches_plain(dt, B, H, S, hs, seq_major, decay_sd):
@@ -271,6 +301,17 @@ def test_cuda_rwkv6_wkv_matches_plain(dt, B, H, S, hs, seq_major, decay_sd):
     assert state.shape == (B, H, hs, hs) and state.dtype == torch.float32
     assert (o - ro).abs().max().item() < 1e-5 * ro.abs().max().item()
     assert (state - rstate).abs().max().item() < 1e-5 * rstate.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_wkv_is_deterministic():
+    """The WKV's passes sum in fixed orders, with no atomics: two calls on the
+    same inputs give the same bits (output and final state)."""
+    dev = _cuda()
+    x = _wkv_inputs(dev, 1, 64, 3000, 64, "bf16", True, 1.0)
+    first, second = rwkv6_wkv(*x), rwkv6_wkv(*x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

@@ -100,6 +100,86 @@ def test_pallas_wkv_prefix_sum_decays_lose_accuracy_at_strong_decays():
     assert float(jnp.max(jnp.abs(pallas - exact)) / jnp.max(jnp.abs(exact))) > 1e-4
 
 
+def _wkv_three_passes(r, k, v, w_log, u, C=64, SC=8):
+    """The CUDA kernel's decomposition in plain f32 torch, pass by pass.
+    1: per chunk c, DT_c = prod of its decays and dS_c = KH^T V with KH[s] =
+    k[s] * the decay after s to the chunk end; 2: the states entering the
+    chunks, S_0 = 0, S_{c+1} = DT_c S_c + dS_c; 3: per chunk, A (within
+    8-row sub-chunks by walking the decays step by step, across them
+    through the sub-chunk decays), and o = RD S_c + A V with RD = Q * PP.
+    Rows past S are padded with r = k = v = 0 and w_log = 0."""
+    B, H, S, hs = r.shape
+    nc = -(-S // C)
+    pad = lambda x: torch.nn.functional.pad(x.float(), (0, 0, 0, nc * C - S))
+    r, k, v, e = (pad(x).reshape(B, H, nc, C, hs) for x in (r, k, v, w_log))
+    e = torch.exp(e)
+    # pass 1
+    kh, d = torch.empty_like(k), torch.ones_like(e[..., 0, :])
+    for t in range(C - 1, -1, -1):
+        kh[..., t, :] = k[..., t, :] * d
+        d = d * e[..., t, :]
+    dt, ds = d, kh.transpose(-1, -2) @ v                     # (B,H,nc,hs), (B,H,nc,hs,hs)
+    # pass 2
+    states, st = torch.empty_like(ds), torch.zeros_like(ds[:, :, 0])
+    for c in range(nc):
+        states[:, :, c] = st
+        st = dt[:, :, c, :, None] * st + ds[:, :, c]
+    # pass 3: Q (r times the decay from its sub-chunk's start), KQ (k times
+    # the decay to its sub-chunk's end), SD (each sub-chunk's decay), PP (the
+    # decay of the sub-chunks before)
+    q, kq = torch.empty_like(r), torch.empty_like(k)
+    nsc = C // SC
+    sd = torch.empty(*e.shape[:3], nsc, hs)
+    pp = torch.empty_like(sd)
+    dd = torch.ones_like(e[..., 0, :])
+    for i in range(nsc):
+        pp[..., i, :] = dd
+        p = torch.ones_like(dd)
+        for t in range(i * SC, (i + 1) * SC):
+            q[..., t, :] = r[..., t, :] * p
+            p = p * e[..., t, :]
+        sd[..., i, :] = p
+        dd = dd * p
+        p = torch.ones_like(dd)
+        for t in range((i + 1) * SC - 1, i * SC - 1, -1):
+            kq[..., t, :] = k[..., t, :] * p
+            p = p * e[..., t, :]
+    A = torch.zeros(*e.shape[:3], C, C)
+    for t in range(C):                      # inside a sub-chunk, step by step
+        A[..., t, t] = (r[..., t, :] * u.float()[None, :, None] * k[..., t, :]).sum(-1)
+        walk = torch.ones_like(dd)
+        for s in range(t - 1, t - t % SC - 1, -1):
+            A[..., t, s] = (r[..., t, :] * k[..., s, :] * walk).sum(-1)
+            walk = walk * e[..., s, :]
+    for i in range(1, nsc):                 # across sub-chunks
+        g = torch.ones_like(dd)
+        for j in range(i - 1, -1, -1):
+            A[..., i * SC:(i + 1) * SC, j * SC:(j + 1) * SC] = \
+                (q[..., i * SC:(i + 1) * SC, :] * g[..., None, :]) \
+                @ kq[..., j * SC:(j + 1) * SC, :].transpose(-1, -2)
+            g = g * sd[..., j, :]
+    rd = q * pp.repeat_interleave(SC, dim=-2)
+    o = rd @ states + A @ v
+    return o.reshape(B, H, nc * C, hs)[:, :, :S], st
+
+
+@pytest.mark.parametrize("S", [1, 64, 130, 333])
+@pytest.mark.parametrize("decay_sd", [1.0, 3.0])
+@pytest.mark.parametrize("hs", [32, 64])
+def test_wkv_three_pass_decomposition_matches_exact_scan(S, decay_sd, hs):
+    """The algebra of the CUDA kernel's three passes (each chunk's state
+    increment and decay, the chunk-entering states, the per-chunk output)
+    gives the exact scan's output and final state within the reference's
+    1e-5 relative bound, also at decays as strong as the random-weight
+    models' (decay sd 3)."""
+    x = [torch.from_numpy(a) for a in _wkv_inputs(2, 2, S, hs, seed=17, decay_sd=decay_sd)]
+    o, state = _wkv_three_passes(*x)
+    ro, rstate = tref.rwkv6_wkv_ref(*x)
+    assert o.shape == ro.shape and state.shape == rstate.shape
+    assert rel(ro.numpy(), o) < 1e-5
+    assert rel(rstate.numpy(), state) < 1e-5
+
+
 @pytest.mark.parametrize("B,H,S,hs", [(2, 3, 70, 16), (1, 2, 64, 32), (1, 1, 130, 64)])
 def test_wkv_final_state_matches_wkv_chunked(B, H, S, hs):
     """The plain WKV's second output is the state after the last token: the
