@@ -22,8 +22,13 @@ Phases (any failure exits non-zero and prints no result line):
               the recurrent archs too: the forward and decode kernels at
               D=256 (recurrentgemma's local attention: 10 query heads over
               one KV head, window 2048; bf16 within 2e-2, f32 within 2e-5),
-              the RG-LRU scan (f32 within 1e-5) and the RWKV-6 WKV (output
-              and final state within 1e-5 of the largest plain value).
+              the RG-LRU scan (the plain version's bits, and within 1e-5) and
+              the RWKV-6 WKV (output and final state within 1e-5 of the
+              largest plain value).  Flash-decode is also held at head dims
+              16 and 32 and on a lane with no visible slot; for it and the
+              RG-LRU scan a line gives ms, GB/s (of the visible and of the
+              full cache for decode), the bound, registers and spills, and
+              whether a rerun gives the same bits.
 4. serve    — qwen2-1.5b at full published width, random weights from a
               seeded generator, ServingEngine(n_slots=4, cache_len=4096,
               temperature=0) over 8 requests; launch counts must equal
@@ -163,8 +168,8 @@ class Timer:
 def kernel_name(mangled: str) -> str:
     """``fwd_bf16<128>`` or ``wkv_chunk_out<__nv_bfloat16, 64>`` from the
     Itanium name of a kernel in an anonymous namespace (length-prefixed
-    components; template arguments that are int literals, named types or
-    ``float``)."""
+    components; template arguments that are int or bool literals, named
+    types or ``float``)."""
     def ident(i):
         j = i
         while mangled[j].isdigit():
@@ -178,9 +183,10 @@ def kernel_name(mangled: str) -> str:
         if mangled.startswith("I", i):
             i, args = i + 1, []
             while i < len(mangled) and mangled[i] != "E":
-                if mangled.startswith("Li", i):
+                if mangled.startswith("L", i):        # a literal: L <type> <value> E
                     j = mangled.index("E", i)
-                    args.append(mangled[i + 2:j])
+                    value = mangled[i + 2:j]
+                    args.append({"b0": "false", "b1": "true"}.get(mangled[i + 1] + value, value))
                     i = j + 1
                 elif mangled[i].isdigit():
                     arg, i = ident(i)
@@ -209,6 +215,18 @@ def ptxas_summary(log: str):
             warn.setdefault(kernel_name(line.rsplit("'", 2)[1]), []).append(
                 line.split(":", 1)[1].split(" for the function")[0].split(" in the function")[0].strip())
     return [(k, r, sp, warn.get(k, [])) for k, (r, sp) in out.items()]
+
+
+def kernel_regs(lib: str, mark: str) -> str:
+    """'R registers, S bytes spilled' of the kernels of ``lib`` whose names
+    hold ``mark`` (from the build's -Xptxas -v log)."""
+    from repro_torch.kernels import build
+    got = []
+    for kernel, regs, spills, _ in ptxas_summary(build.ptxas_log(lib)):
+        if mark in kernel:
+            n = spills.split(" bytes spill stores")[0].split(",")[-1].strip()
+            got.append(f"{kernel}: {regs} registers, {n} bytes spilled")
+    return "; ".join(got) or "not in the build log"
 
 
 def bound(flops, nbytes, peak_flops):
@@ -417,6 +435,12 @@ def check_flash_decode(gen, dev, timer):
         (torch.bfloat16, 3, 32, 4, 1000, 64, (1000, 500, 3), None),
         (torch.float32, 3, 32, 4, 1000, 64, (2500, 500, 3), 300),
         (torch.bfloat16, 2, 12, 1, 700, 64, (700, 300), None),          # G = 12
+        # the reference's small head dims, and a lane with no visible slot
+        (torch.bfloat16, 3, 32, 2, 1000, 16, (1000, 40, 0), None),      # G = 16
+        (torch.float32, 3, 32, 2, 1000, 16, (1000, 40, 0), 100),
+        (torch.bfloat16, 3, 8, 2, 555, 32, (1555, 100, 0), 50),
+        (torch.float32, 3, 8, 2, 555, 32, (555, 100, 0), None),
+        (torch.bfloat16, 4, 12, 2, 4096, 128, (4096, 64, 1, 0), None),
     ]
     worst = 0.0
     for dtype, B, H, KVH, T, D, fills, window in cases:
@@ -460,7 +484,38 @@ def check_flash_decode(gen, dev, timer):
           f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     row["max_abs_err"] = worst
+    decode_report(row, flash_decode, (q, k, v, pos, qpos), None, nbytes, full_bytes, D)
     return row
+
+
+def decode_report(row, flash_decode, args, window, nbytes, full_bytes, D):
+    """The redesign's line for flash-decode at one serving shape: ms, GB/s of
+    the visible and of the full cache, the bound, registers and spills of the
+    bf16 kernel at this head dim, and whether a rerun gives the same bits
+    (fails if not: every sum has a fixed order)."""
+    from repro_torch.kernels import decode_attention as da
+    q, k = args[0], args[1]
+    B, KVH, T = k.shape[0], k.shape[1], k.shape[2]
+    dev = torch.cuda.current_device()
+    plan = da._plan(dev, B, KVH, T, D, da._DTYPES[q.dtype], q.element_size())
+    row["cluster"] = plan.cluster
+    row["clusters_co_resident"] = da.max_clusters(dev, D, da._DTYPES[q.dtype], plan.cluster)
+    o1 = flash_decode(*args, window=window)
+    o2 = flash_decode(*args, window=window)
+    torch.cuda.synchronize()
+    row["bit_equal_runs"] = bool(torch.equal(o1, o2))
+    row["gb_per_s"] = nbytes / row["ms"] / 1e6
+    row["full_cache_gb_per_s"] = full_bytes / row["ms"] / 1e6
+    row["registers"] = kernel_regs("decode_attention", f"bfloat16, {D}>")
+    print(f"flash_decode redesign at D={D}: {row['ms']:.4f} ms, {row['gb_per_s']:.0f} GB/s "
+          f"of visible bytes, {row['full_cache_gb_per_s']:.0f} GB/s of the full cache; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {row['registers']}; rerun "
+          f"{'bit-equal' if row['bit_equal_runs'] else 'DIFFERS'}; {B * KVH} clusters of "
+          f"{plan.cluster} blocks of {plan.slots} slots and {plan.smem} bytes of shared "
+          f"memory (the card holds {row['clusters_co_resident']} such clusters at once)",
+          flush=True)
+    if not row["bit_equal_runs"]:
+        fail("flash_decode is not deterministic")
 
 
 # ------------------------------------------------ kernels of the recurrent slice
@@ -528,7 +583,8 @@ def check_flash_decode_d256(gen, dev, timer):
     fills = (2048, 2000, 700, 64)
     worst = 0.0
     for dtype, fl in ((torch.bfloat16, fills), (torch.float32, fills),
-                      (torch.bfloat16, (5000, 2049, 3, 1))):       # the ring wrapped
+                      (torch.bfloat16, (5000, 2049, 3, 1)),        # the ring wrapped
+                      (torch.float32, (5000, 2000, 1, 0))):        # a lane with nothing visible
         q, k, v, pos, qpos = decode_inputs(gen, dev, dtype, B, H, KVH, T, D, fl, window)
         o = flash_decode(q, k, v, pos, qpos, window=window)
         r = ref.flash_decode_ref(q, k, v, pos, qpos, window=window)
@@ -558,33 +614,40 @@ def check_flash_decode_d256(gen, dev, timer):
     flops = 4.0 * H * D * n_vis
     nbytes = 2 * 2 * KVH * D * n_vis + 4 * n_vis + 2 * 2 * B * H * D + 4 * B
     row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    full_bytes = 2 * 2 * B * KVH * T * D
     print(f"flash_decode work at B={B} H={H} KVH={KVH} T={T} D={D} bf16 fills={fills} "
-          f"window={window}: visible {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP; kernel "
+          f"window={window}: full cache {full_bytes / 1e6:.2f} MB, visible "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP; kernel "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
           f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
           flush=True)
     row["max_abs_err"] = worst
+    decode_report(row, flash_decode, (q, k, v, pos, qpos), window, nbytes, full_bytes, D)
     return row
 
 
 def check_rglru_scan(gen, dev, timer):
-    """The RG-LRU scan against its plain version (f32, atol 1e-5, the
-    reference's bound) at the hybrid's prefill shape and a ragged one; timed
-    at the prefill shape.  No single PyTorch call computes this recurrence,
-    so there is no library time."""
+    """The RG-LRU scan against its plain version at the hybrid's prefill and
+    scoring shapes and ragged ones (W = 33 takes the kernel's cp.async path):
+    the same bits (the chain rounds the product, then the sum, as the plain
+    version does), hence also within the reference's 1e-5; timed at the
+    prefill shape.  No single PyTorch call computes this recurrence, so
+    there is no library time."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rglru_scan import rglru_scan
     worst = 0.0
-    for B, S, W in ((1, 2000, 2560), (3, 17, 32), (2, 4096, 2560)):
+    for B, S, W in ((1, 2000, 2560), (3, 17, 32), (2, 4096, 2560), (2, 130, 33)):
         a = torch.rand(B, S, W, generator=gen, device=dev) * 0.5 + 0.499
         b = torch.randn(B, S, W, generator=gen, device=dev)
         h = rglru_scan(a, b)
         r = ref.rglru_scan_ref(a, b)
         torch.cuda.synchronize()
         err = (h - r).abs().max().item()
-        ok = err <= RGLRU_TOL
+        equal = torch.equal(h, r)
+        ok = err <= RGLRU_TOL and equal
         print(f"rglru_scan f32 B={B} S={S} W={W}: max|h|err={err:.3e} "
-              f"max|h|={r.abs().max().item():.3e} tol={RGLRU_TOL:g} {'ok' if ok else 'FAIL'}",
+              f"max|h|={r.abs().max().item():.3e} tol={RGLRU_TOL:g}, "
+              f"{'bit-equal' if equal else 'NOT bit-equal'} {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
             fail("rglru_scan disagrees with its plain version")
@@ -603,6 +666,22 @@ def check_rglru_scan(gen, dev, timer):
           f"({nbytes / row['ms'] / 1e6:.0f} GB/s), plain {row['plain_ms']:.4f} ms, "
           f"library none, bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     row["max_abs_err"] = worst
+    runs = [rglru_scan(a, b) for _ in range(2)]
+    torch.cuda.synchronize()
+    row["bit_equal_runs"] = bool(torch.equal(*runs))
+    row["gb_per_s"] = nbytes / row["ms"] / 1e6
+    row["registers"] = kernel_regs("rglru_scan", "rglru_chain")
+    S2 = 4096
+    a2 = torch.rand(B, S2, W, generator=gen, device=dev) * 0.5 + 0.499
+    b2 = torch.randn(B, S2, W, generator=gen, device=dev)
+    row["scoring_ms"] = timer.ms(lambda: rglru_scan(a2, b2), iters=20)
+    print(f"rglru_scan redesign: {row['ms']:.4f} ms at S={S}, {row['gb_per_s']:.0f} GB/s; "
+          f"{row['scoring_ms']:.4f} ms at the scoring shape S={S2} "
+          f"({3 * 4 * B * S2 * W / row['scoring_ms'] / 1e6:.0f} GB/s); bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {row['registers']}; rerun "
+          f"{'bit-equal' if row['bit_equal_runs'] else 'DIFFERS'}", flush=True)
+    if not row["bit_equal_runs"]:
+        fail("rglru_scan is not deterministic")
     return row
 
 
@@ -703,9 +782,10 @@ def teacher_forced(api, cfg, params, policy, req, dev, n_steps=8):
 # kernel-name marks of the device-time kinds a profile reports
 PROFILE_KINDS = (
     ("attention kernels", ("fwd_bf16", "fwd_f32", "dq_bf16", "dq_f32", "dkv_bf16",
-                           "dkv_f32", "dkv_reduce", "decode_partial", "decode_combine")),
-    ("recurrence kernels", ("rglru_scan_kernel", "wkv_chunk_state", "wkv_state_scan",
-                            "wkv_chunk_out")),
+                           "dkv_f32", "dkv_reduce", "flash_decode_kernel", "decode_partial",
+                           "decode_combine")),
+    ("recurrence kernels", ("rglru_chain", "rglru_scan_kernel", "wkv_chunk_state",
+                            "wkv_state_scan", "wkv_chunk_out")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("copy/fill", ("Memcpy", "Memset", "copy_", "fill")),
     ("elementwise/reduce", ("elementwise", "reduce", "softmax", "Reduce")),
@@ -1478,6 +1558,9 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     timer = Timer(dev)
+    tiny = torch.zeros(1, device=dev)
+    print(f"timer floor: one launch of a 1-element add, timed as the kernels are: "
+          f"{timer.ms(lambda: tiny.add_(1), iters=50):.4f} ms", flush=True)
     fa = check_flash_attention(gen, dev, timer)
     fd = check_flash_decode(gen, dev, timer)
     bwd = check_flash_attention_bwd(gen, dev, timer)

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels: TMA
-// tensor maps and loads, mbarriers, wgmma shared-memory descriptors and
-// products, and setmaxnreg.  Raw PTX, no CUTLASS.  smem_addr, pack_bf16 and
-// launch come from attention_common.cuh.
+// Hopper (sm_90a) building blocks of the kernels: TMA tensor maps, loads and
+// stores, cp.async with mbarrier completion, mbarriers, wgmma shared-memory
+// descriptors and products, and setmaxnreg.  Raw PTX, no CUTLASS.
+// smem_addr, pack_bf16 and launch come from attention_common.cuh.
 //
 // Where trouble hides, and what these helpers fix:
 //
@@ -104,6 +104,25 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A contiguous f32 (B, S, W) tensor as a 3-D map over (W, S, B) whose box is
+// box_cols channels by box_rows steps of one batch row, with no swizzle (the
+// box lands in shared memory densely, row after row).  A load reads zeros
+// past the tensor's edges and a store writes nothing there, so a box never
+// crosses into the next batch row.  W must be a multiple of 4 (rows a
+// multiple of 16 bytes).  False if the encoder refuses.
+inline bool make_map_f32_3d(CUtensorMap* map, const void* ptr, int B, int S, int W,
+                            int box_cols, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)S, (cuuint64_t)B};
+  cuuint64_t strides[2] = {(cuuint64_t)W * 4, (cuuint64_t)S * W * 4};
+  cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  cuuint32_t estride[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
+             box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ------------------------------------------------------- device: shared memory
 
 // The dynamic shared memory, rounded up to 1024 bytes (the 128-byte swizzle
@@ -154,6 +173,61 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The box of a 3-D map at (c0 = first column, c1 = first row, c2 = batch).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Shared memory at src to the box of a 3-D map at (c0, c1, c2), as one bulk
+// group of the issuing thread.  The threads that wrote src must first make
+// their writes visible to the TMA unit (fence_async_shared); before src is
+// written again the issuing thread waits for the read (bulk_wait_read<N>).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      "cp.async.bulk.commit_group;\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared memory
+// (and, for bulk_wait_all, until all have completed).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// One 4-byte asynchronous copy (cp.async, any 4-byte aligned address), and
+// an arrival on `bar` once every earlier cp.async of this thread has landed
+// (.noinc: the barrier's count includes these arrivals).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(static_cast<uint64_t>(__cvta_generic_to_global(src)))
+               : "memory");
+}
+// The same for 16 bytes (both addresses 16-byte aligned), past L1.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(static_cast<uint64_t>(__cvta_generic_to_global(src)))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
 }
 
 // ------------------------------------------------------------------- wgmma

@@ -4,6 +4,11 @@ Replaces the TPU kernel ``repro/kernels/rglru_scan.py:_rglru_kernel``: the
 linear recurrence h_t = a_t h_{t-1} + b_t from h_{-1} = 0 over (B,S,W) f32.
 Neither the TPU kernel nor this one has a gradient (the JAX package gives
 ``ops.rglru`` no VJP), so the wrapper refuses inputs that require grad.
+
+A block walks one sequential chain per channel for CHANNELS channels of one
+batch row, fed by a producer warp through a ring of STAGES tiles of STEPS
+steps (TMA where W is a multiple of 4, else 4-byte cp.async; the source's
+header says why); the constants mirror the source.
 """
 from __future__ import annotations
 
@@ -13,6 +18,10 @@ import torch
 
 from . import build
 from .ref import rglru_scan_ref
+
+CHANNELS = 16     # channels per block (CW in the source)
+STEPS = 64        # steps per ring stage
+STAGES = 6
 
 
 def _bind():

@@ -85,8 +85,11 @@ def test_cuda_flash_attention_matches_plain(dt, D, B, H, KVH, Sq, Skv, window, s
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("window", [None, 30])
-@pytest.mark.parametrize("H,KVH,D", [(12, 2, 128), (12, 1, 64), (10, 1, 256), (4, 2, 256)])
+@pytest.mark.parametrize("H,KVH,D", [(12, 2, 128), (12, 1, 64), (10, 1, 256), (4, 2, 256),
+                                     (8, 2, 32), (4, 1, 16)])
 def test_cuda_flash_decode_matches_plain(dt, window, H, KVH, D):
+    """The flash-decode kernel against its plain version, one launch a call,
+    and a rerun gives the same bits (every sum has a fixed order)."""
     dev = _cuda()
     rng = np.random.default_rng(1)
     B, T = 2, 500
@@ -104,6 +107,34 @@ def test_cuda_flash_decode_matches_plain(dt, window, H, KVH, D):
     torch.cuda.synchronize()
     assert flash_decode.launches == n0 + 1
     assert (o.float() - r.float()).abs().max().item() < TOL[dt]
+    assert torch.equal(flash_decode(q, k, v, pos, qpos, window=window), o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 32, 128, 256])
+def test_cuda_flash_decode_skips_invisible_tiles_and_empty_lanes(dt, D):
+    """Lanes of 4096, 64 and 1 written slots of a 4096-slot cache (the blocks
+    of the short lanes skip all or most of their tiles) and a lane with
+    nothing written (qpos = -1: no visible slot, where the plain version
+    gives the mean of V over all slots), with the model's cache layout."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    B, H, KVH, T = 4, 6, 2, 4096
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).to(dev, TDT[dt])
+    q = mk(B, H, D)
+    k, v = (mk(B, T, KVH, D).permute(0, 2, 1, 3) for _ in range(2))
+    fills = (4096, 64, 1, 0)
+    pos = np.full((B, T), -1, np.int32)
+    for b, n in enumerate(fills):
+        pos[b, :n] = np.arange(n)
+    qpos = np.array([n - 1 for n in fills], np.int32)
+    pos, qpos = torch.from_numpy(pos).to(dev), torch.from_numpy(qpos).to(dev)
+    o = flash_decode(q, k, v, pos, qpos)
+    r = ref.flash_decode_ref(q, k, v, pos, qpos)
+    torch.cuda.synchronize()
+    assert (o.float() - r.float()).abs().max().item() < TOL[dt]
+    assert torch.equal(flash_decode(q, k, v, pos, qpos), o)
 
 
 @pytest.mark.cuda
@@ -254,8 +285,11 @@ def test_cuda_flash_attention_bwd_dq_is_deterministic():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,W", [(3, 17, 32), (2, 50, 64), (1, 256, 128), (2, 300, 100),
-                                   (1, 2000, 2560)])
+                                   (1, 2000, 2560), (2, 130, 33)])
 def test_cuda_rglru_scan_matches_plain(B, S, W):
+    """The chain rounds the product and then the sum, as the plain version
+    does: the same bits, also for a W that is no multiple of 4 (the cp.async
+    path) and across reruns."""
     dev = _cuda()
     rng = np.random.default_rng(2)
     a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, W)).astype(np.float32)).to(dev)
@@ -267,6 +301,8 @@ def test_cuda_rglru_scan_matches_plain(B, S, W):
     assert rglru_scan.launches == n0 + 1
     assert h.shape == (B, S, W) and h.dtype == torch.float32
     assert (h - r).abs().max().item() < 1e-5
+    assert torch.equal(h, r)
+    assert torch.equal(rglru_scan(a, b), h)
 
 
 def _wkv_inputs(dev, B, H, S, hs, dt, seq_major, decay_sd, seed=4):

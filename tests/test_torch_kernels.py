@@ -19,7 +19,8 @@ from repro.kernels.flash_attention import flash_attention as j_flash_attention
 from repro.kernels.flash_attention import flash_attention_fwd as j_flash_attention_fwd
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.decode_attention import MAX_CHUNK, flash_decode, split_plan
+from repro_torch.kernels.decode_attention import (MAX_CLUSTER, SMEM_LIMIT, decode_plan,
+                                                  flash_decode)
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                  flash_attention_fwd)
 
@@ -122,10 +123,23 @@ def test_ops_dispatch_matches_plain_on_cpu():
 
 @pytest.mark.parametrize("B,KVH,T,n_sm", [(4, 2, 4096, 132), (1, 1, 40, 132),
                                           (64, 8, 32768, 132), (3, 3, 1000, 8)])
-def test_split_plan_covers_cache(B, KVH, T, n_sm):
-    chunk, nsplit = split_plan(B, KVH, T, n_sm)
-    assert 1 <= chunk <= MAX_CHUNK
-    assert (nsplit - 1) * chunk < T <= nsplit * chunk
+@pytest.mark.parametrize("D,element_size", [(16, 2), (128, 2), (256, 2), (256, 4)])
+def test_decode_plan_covers_cache(B, KVH, T, n_sm, D, element_size):
+    """The flash-decode plan: a power-of-two cluster of at most 16 blocks whose
+    ranges of whole tiles cover every cache slot once, in shared memory a
+    block can have; and a cluster the card cannot hold B * KVH of at once is
+    halved."""
+    plan = decode_plan(B, KVH, T, D, element_size, n_sm)
+    assert 1 <= plan.cluster <= MAX_CLUSTER and plan.cluster & (plan.cluster - 1) == 0
+    assert plan.slots % plan.tile == 0 and plan.smem <= SMEM_LIMIT
+    covered = [t for lo, hi in plan.ranges(T) for t in range(lo, hi)]
+    assert covered == list(range(T))
+    assert B * KVH * plan.cluster >= min(n_sm, B * KVH * MAX_CLUSTER, B * KVH * -(-T // plan.tile)) / 2
+    held = {16: 7, 8: 15, 4: 30, 2: 66}      # a card that holds fewer large clusters at once
+    small = decode_plan(B, KVH, T, D, element_size, n_sm, lambda c: held[c])
+    assert small.cluster <= plan.cluster
+    assert small.cluster == 1 or held[small.cluster] >= B * KVH
+    assert [t for lo, hi in small.ranges(T) for t in range(lo, hi)] == list(range(T))
 
 
 def _grad_inputs(B, H, KVH, Sq, Skv, D, seed=3):

@@ -23,7 +23,7 @@ from repro.models import rwkv6 as jrwkv
 from repro.models.transformer import _wkv_scan_with_state as j_wkv_scan_with_state
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import CHANNELS, STAGES, STEPS, rglru_scan
 from repro_torch.kernels.rwkv6_kernel import rwkv6_wkv
 from repro_torch.models import attention, rglru, rwkv6
 from repro_torch.models.module import tree_paths
@@ -64,6 +64,50 @@ def test_associative_scan_matches_sequential(B, S, W):
     np.testing.assert_allclose(h.numpy(), np.asarray(jref.rglru_scan_ref(a.numpy(),
                                                                          b.numpy())),
                                atol=1e-5)
+
+
+def _rglru_rehearsal(a, b, stages):
+    """The CUDA kernel's tiling of the RG-LRU scan in plain PyTorch.  A block
+    per (batch row, CHANNELS channels): its producer fills a ring of `stages`
+    tiles of STEPS steps, either as boxes of the (W, S, B) tensor map (zeros
+    past the edges) or, where W is not a multiple of 4, element by element
+    (the ring keeps what it held elsewhere: NaN here); one chain per channel
+    walks the tiles in order, rounding the product and then the sum, and
+    each tile of h leaves in one piece, clipped at the tensor's edges."""
+    B, S, W = a.shape
+    h = torch.full_like(a, float("nan"))
+    ring = torch.full((stages, 2, STEPS, CHANNELS), float("nan"))
+    for bi in range(B):
+        for c0 in range(0, W, CHANNELS):
+            c1 = min(W, c0 + CHANNELS)
+            hv = torch.zeros(CHANNELS)
+            for i in range(-(-S // STEPS)):
+                t0, s, n = i * STEPS, i % stages, min(STEPS, S - i * STEPS)
+                if W % 4 == 0:
+                    ring[s].zero_()
+                ring[s, 0, :n, :c1 - c0] = a[bi, t0:t0 + n, c0:c1]
+                ring[s, 1, :n, :c1 - c0] = b[bi, t0:t0 + n, c0:c1]
+                tile = torch.empty(STEPS, CHANNELS)
+                for r in range(n):
+                    hv = ring[s, 0, r] * hv + ring[s, 1, r]
+                    tile[r] = hv
+                h[bi, t0:t0 + n, c0:c1] = tile[:n, :c1 - c0]
+    return h
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 130, 32), (1, 200, 33), (3, 17, 20), (2, 64, 7)])
+@pytest.mark.parametrize("stages", [STAGES, 2])
+def test_rglru_kernel_tiling_matches_plain_and_pallas(B, S, W, stages):
+    """The kernel's channel blocks, ring stages, ragged last tile and ragged W
+    give the plain version's bits, and the Pallas kernel's values within the
+    reference's 1e-5."""
+    rng = np.random.default_rng(6)
+    a = rng.uniform(0.5, 0.999, (B, S, W)).astype(np.float32)
+    b = rng.standard_normal((B, S, W)).astype(np.float32)
+    h = _rglru_rehearsal(torch.from_numpy(a), torch.from_numpy(b), stages)
+    assert torch.equal(h, tref.rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(b)))
+    jh = j_rglru_scan(jnp.asarray(a), jnp.asarray(b), block_s=16, interpret=True)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=1e-5)
 
 
 def _wkv_inputs(B, H, S, hs, seed=4, decay_sd=1.0):
