@@ -29,6 +29,27 @@ Phases (any failure exits non-zero and prints no result line):
               RG-LRU scan a line gives ms, GB/s (of the visible and of the
               full cache for decode), the bound, registers and spills, and
               whether a rerun gives the same bits.
+3b. kernels_d32 — the forward (bf16, f32), dq and dk/dv at head dim 32
+              against their plain versions at the bench train cell's shapes
+              (q (32,12,256,32), k/v (32,2,256,32), causal), with a window,
+              a causal shift and G = 1, 6; two runs of dq and of dk/dv must
+              give the same bits; a line each of ms, bound, SDPA's time,
+              registers and spills, and the card's name and power limit.
+3c. bench_step — qwen2-1.5b-bench (the search's own config) on one card:
+              one train_s step's gradients (remat "dots") and one decode_s
+              step, kernels on against off from the same params, f32 and
+              bf16 (BENCH_LOSS_TOL, BENCH_GRAD_TOL, F32_LOGIT_TOL; bf16
+              gradients and logits no further from the f32 ones than
+              BF16_ERROR_RATIO times the plain bf16 path's), with exact
+              launch counts (8 forward, 4 dq, 4 dk/dv; 4 flash-decode).
+3d. measure — ``chip_smoke.py --measure``, in a process of its own (its
+              fake process group stays out of the card phases; its failure
+              fails the run): the committed corpus's 4 non-MoE witnesses
+              and 6 controls measured by ``measure_cell`` (V5E spec, fake
+              cuda tensors), each verdict as the reference's replay holds
+              it; the same points kernels on (no launch, no pointer read;
+              counter deltas printed); qwen2-1.5b at train_4k on the 16x16
+              production mesh (counters and trace seconds printed).
 4. serve    — qwen2-1.5b at full published width, random weights from a
               seeded generator, ServingEngine(n_slots=4, cache_len=4096,
               temperature=0) over 8 requests; launch counts must equal
@@ -66,8 +87,9 @@ Phases (any failure exits non-zero and prints no result line):
               with exact launch counts, whose f32 logits with the kernels on
               must match the plain versions' within 1e-3 of the largest
               logit (bf16, the loose check, as for qwen2).
-8. report   — one JSON line of kernels, the nvidia-smi line, and the result
-              line ``{"ok": true, "device": {...}}``.
+8. report   — each phase's seconds, one JSON line of kernels (the head-dim-32
+              rows under ``d32``), the nvidia-smi line, and the result line
+              ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1518,6 +1540,326 @@ def recurrent(dev, arch, cache_len, max_prompt):
             "f32_logit_err": f32_err, **numbers}
 
 
+# ------------------------------------------------ head dim 32, the bench cells
+
+# the bench train cell's per-call attention shapes (qwen2-1.5b-bench at
+# train_s): B, H, KVH, S, D
+D32_SHAPE = (32, 12, 2, 256, 32)
+# the bench step, kernels on vs the plain versions from the same params and
+# batch: the loss relative to its value; f32 gradients leaf by leaf relative
+# to the leaf's largest plain gradient; bf16 gradients against the f32 ones,
+# no further than BF16_ERROR_RATIO times the plain bf16 path's (bf16 rounding
+# alone moves small leaves by O(1) of their scale)
+BENCH_LOSS_TOL = {"bf16": 1e-2, "f32": 1e-5}
+BENCH_GRAD_TOL = {"f32": F32_GRAD_TOL}
+
+
+def check_attention_d32(gen, dev, timer, context):
+    """The forward (bf16, f32), dq and dk/dv at head dim 32 against their
+    plain versions at the bench train cell's per-call shapes (causal), plus
+    a window, a causal shift and G = 1 and 6; two runs of dq and of dk/dv
+    must give the same bits.  Returns a report row per kernel: kernel, plain
+    and SDPA times, the bound, registers and spills."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq,
+                                                     flash_attention_fwd)
+    B, H, KVH, S, D = D32_SHAPE
+    cases = [  # (dtype, B, H, KVH, Sq, Skv, window, shift)
+        (torch.bfloat16, B, H, KVH, S, S, None, 0),
+        (torch.float32, B, H, KVH, S, S, None, 0),
+        (torch.bfloat16, 2, 6, 1, 777, 777, 100, 0),
+        (torch.float32, 2, 6, 6, 500, 700, 300, 200),
+        (torch.bfloat16, 1, 12, 2, 1024, 3000, None, 1976),
+    ]
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for dtype, b, h, kvh, sq, skv, window, shift in cases:
+        q, k, v = attn_inputs(gen, dev, dtype, b, h, kvh, sq, skv, D)
+        do = torch.randn(b, h, sq, D, generator=gen, device=dev).to(dtype)
+        o, lse = flash_attention_fwd(q, k, v, window=window, causal_shift=shift)
+        ro, rlse = ref.flash_attention_ref(q, k, v, window=window, causal_shift=shift)
+        got = flash_attention_bwd(q, k, v, ro, rlse, do, window=window, causal_shift=shift)
+        want = ref.flash_attention_bwd_ref(q, k, v, ro, rlse, do, window=window,
+                                           causal_shift=shift)
+        torch.cuda.synchronize()
+        e_o = (o.float() - ro.float()).abs().max().item()
+        e_l = (lse - rlse).abs().max().item()
+        errs = {n: scaled_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        ok = e_o <= TOL[dtype] and e_l <= TOL[dtype] and \
+            all(e[2] <= GRAD_TOL[dtype] for e in errs.values())
+        print(f"d32 {str(dtype)[6:]} B={b} H={h} KVH={kvh} Sq={sq} Skv={skv} D={D} "
+              f"window={window} shift={shift}: max|o|err={e_o:.3e} max|lse|err={e_l:.3e} "
+              + ", ".join(f"{n} err/max(1,|plain|)={e[2]:.3e}" for n, e in errs.items())
+              + f" {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("an attention kernel at head dim 32 disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            worst["fwd"] = max(worst["fwd"], e_o, e_l)
+            worst["dq"] = max(worst["dq"], errs["dq"][0])
+            worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+        del q, k, v, do, o, lse, ro, rlse, got, want
+
+    q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, H, KVH, S, S, D)
+    do = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = ref.flash_attention_ref(q, k, v)
+    dq_runs = [flash_attention_bwd_dq(q, k, v, o, lse, do) for _ in range(2)]
+    delta = dq_runs[0][1]
+    dkv_runs = [flash_attention_bwd_dkv(q, k, v, lse, delta, do) for _ in range(2)]
+    torch.cuda.synchronize()
+    bit_equal = {"dq": all(torch.equal(a, b) for a, b in zip(*dq_runs)),
+                 "dkv": all(torch.equal(a, b) for a, b in zip(*dkv_runs))}
+    print(f"d32 at B={B} H={H} KVH={KVH} S={S} D={D}: two dq runs "
+          f"{'bit-equal' if bit_equal['dq'] else 'DIFFER'}, two dk/dv runs "
+          f"{'bit-equal' if bit_equal['dkv'] else 'DIFFER'}", flush=True)
+    if not all(bit_equal.values()):
+        fail("a backward kernel at head dim 32 is not deterministic")
+    del dq_runs, dkv_runs
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kx, vx = k.repeat_interleave(H // KVH, 1), v.repeat_interleave(H // KVH, 1)
+    qx, kxg, vxg = (t.detach().requires_grad_() for t in (q, kx, vx))
+    out = sdpa(qx, kxg, vxg, is_causal=True)
+    sdpa_bwd_ms = timer.ms(lambda: torch.autograd.grad(out, (qx, kxg, vxg), do,
+                                                       retain_graph=True))
+    pairs = B * H * visible_pairs(S, S, None, 0)
+    n_qo, n_kv = q.numel(), k.numel()
+    regs = kernel_regs("flash_attention", "32>") + "; " + \
+        kernel_regs("flash_attention_bwd", "32>")
+    rows = {}
+    for name, key, fn, plain, lib_ms, n_mm, nbytes in (
+            ("flash_attention_fwd", "fwd", lambda: flash_attention_fwd(q, k, v),
+             lambda: ref.flash_attention_ref(q, k, v),
+             timer.ms(lambda: sdpa(q, kx, vx, is_causal=True)), 2,
+             2 * (2 * n_qo + 2 * n_kv) + 4 * B * H * S),               # q o, k v; lse
+            ("flash_attention_bwd_dq", "dq", lambda: flash_attention_bwd_dq(q, k, v, o, lse, do),
+             lambda: ref.flash_attention_bwd_dq_ref(q, k, v, o, lse, do), sdpa_bwd_ms, 3,
+             2 * (4 * n_qo + 2 * n_kv) + 4 * 2 * B * H * S),           # q o do dq, k v; lse delta
+            ("flash_attention_bwd_dkv", "dkv",
+             lambda: flash_attention_bwd_dkv(q, k, v, lse, delta, do),
+             lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, lse, delta, do), sdpa_bwd_ms, 4,
+             2 * (2 * n_qo + 4 * n_kv) + 4 * 2 * B * H * S)):          # q do, k v dk dv; lse delta
+        flops = 2.0 * D * pairs * n_mm
+        row = {"ms": timer.ms(fn), "plain_ms": timer.ms(plain, iters=3),
+               "library_ms": lib_ms, "max_abs_err": worst[key],
+               "bit_equal_runs": bit_equal.get(key, True),
+               "shape": f"B={B} H={H} KVH={KVH} S={S} D={D} bf16 causal"}
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        row["tflops"] = flops / row["ms"] / 1e9
+        print(f"{name} at D=32 (bench train cell, {row['shape']}): {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB; kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
+              f"TFLOP/s), plain {row['plain_ms']:.4f} ms, sdpa{' backward' if n_mm > 2 else ''} "
+              f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"{context}", flush=True)
+        rows[name] = row
+    print(f"d32 registers: {regs}", flush=True)
+    return rows
+
+
+def _bench_batch(cfg, shape, dev, seed=0):
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (shape.global_batch, shape.seq_len + 1), generator=g)
+    return {"tokens": toks[:, :-1].to(torch.int32).to(dev),
+            "labels": toks[:, 1:].to(torch.int32).to(dev)}
+
+
+def bench_step(dev):
+    """qwen2-1.5b-bench on the card: one train_s step's gradients (remat
+    "dots") with the kernels on against the same step with them off, from
+    the same params and batch, in bf16 and in f32, with the exact launch
+    counts of the forward, dq and dk/dv kernels (head dim 32); then one
+    decode_s step (flash-decode at head dim 32) against the plain one."""
+    from repro_torch.configs.base import RunPolicy
+    from repro_torch.core.benchscale import BENCH_SHAPES, bench_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.module import flatten
+    from repro_torch.train import train_step as pts
+
+    cfg = bench_config("qwen2-1.5b")
+    shape = BENCH_SHAPES["train_s"]
+    params = api.init(cfg, seed=0, device=dev)
+    batch = _bench_batch(cfg, shape, dev)
+    n = cfg.n_layers
+    expect = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+              "flash_attention_bwd_dkv": n, "flash_decode": 0, "rglru_scan": 0,
+              "rwkv6_wkv": 0}
+    out, runs = {}, {}
+    for dtype in ("f32", "bf16"):
+        for use in (False, True):
+            policy = RunPolicy(use_pallas=use, remat="dots", dtype=dtype)
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _, grads = pts.compute_grads(cfg, policy, params, batch)
+            torch.cuda.synchronize()
+            runs[dtype, use] = (loss.item(), dict(flatten(grads)), ops.launch_counts(),
+                                (time.perf_counter() - t0) * 1e3)
+    exact = runs["f32", False][1]
+
+    def worst(g, want):
+        """The worst leaf's max|g - want| over its max|want|."""
+        return max((g[p] - want[p]).abs().max().item() / max(want[p].abs().max().item(), 1e-30)
+                   for p in want)
+    for dtype in ("f32", "bf16"):
+        (l0, g0, c0, ms0), (l1, g1, c1, ms1) = runs[dtype, False], runs[dtype, True]
+        loss_err = abs(l1 - l0) / abs(l0)
+        if dtype == "f32":
+            grad_err, grad_tol, what = worst(g1, g0), BENCH_GRAD_TOL["f32"], "the plain f32 grads"
+        else:
+            # bf16 rounding moves small gradient leaves by O(1) either way: the
+            # kernels' bf16 grads may be no further from the f32 grads than
+            # BF16_ERROR_RATIO times the plain bf16 path's
+            grad_err, plain_err = worst(g1, exact), worst(g0, exact)
+            grad_tol, what = BF16_ERROR_RATIO * plain_err, \
+                f"the f32 grads (plain bf16: {plain_err:.3e})"
+        print(f"bench_step {cfg.name} train_s {dtype} remat dots: loss kernels {l1:.6f} plain "
+              f"{l0:.6f} (rel err {loss_err:.3e}, tol {BENCH_LOSS_TOL[dtype]:g}); worst grad "
+              f"leaf max|err|/max|ref| against {what} {grad_err:.3e} (tol {grad_tol:.3e}); "
+              f"launches kernels on {c1}, off {c0}; grads {ms1:.1f} ms on, {ms0:.1f} ms off "
+              f"(first calls, not a timing)", flush=True)
+        if c1 != expect or any(c0.values()):
+            fail(f"bench_step: launches {c1} (kernels on) / {c0} (off), expected {expect}")
+        if not (loss_err <= BENCH_LOSS_TOL[dtype] and grad_err <= grad_tol):
+            fail(f"bench_step: {dtype} kernels-on step disagrees with the plain one")
+        out[f"train_{dtype}"] = {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                                 "launches": c1}
+    del runs, exact
+
+    # decode_s: a cache filled by a 512-token prefill, one decode step on it
+    dshape = BENCH_SHAPES["decode_s"]
+    prompt = _bench_batch(cfg, dshape, dev, seed=1)["tokens"][:, :512]
+    step = {"tokens": prompt[:, -1:],
+            "position": torch.full((dshape.global_batch,), 512, dtype=torch.int32, device=dev)}
+    logits = {}
+    for dtype in ("f32", "bf16"):
+        cp = api.cast_params(params, torch.bfloat16 if dtype == "bf16" else torch.float32)
+        for use in (False, True):
+            with torch.inference_mode():
+                _, _, state = api.forward(cp, {"tokens": prompt}, cfg, RunPolicy(dtype=dtype),
+                                          return_cache=True, cache_len=dshape.seq_len)
+                ops.reset_launch_counts()
+                lg, _ = api.decode_step(cp, state, step, cfg,
+                                        RunPolicy(use_pallas=use, dtype=dtype))
+                torch.cuda.synchronize()
+                logits[dtype, use] = (lg.float(), ops.launch_counts())
+    exact = logits["f32", False][0]
+    scale = max(1.0, exact.abs().max().item())
+    for dtype in ("f32", "bf16"):
+        (a, c0), (b, c1) = logits[dtype, False], logits[dtype, True]
+        if dtype == "f32":
+            err, tol, what = (b - a).abs().max().item(), F32_LOGIT_TOL * scale, "plain f32"
+        else:
+            # bf16, as the serve phase holds it: no further from the f32
+            # logits than BF16_ERROR_RATIO times the plain bf16 path
+            err, plain = (b - exact).abs().max().item(), (a - exact).abs().max().item()
+            tol, what = BF16_ERROR_RATIO * plain, f"f32 (plain bf16: {plain:.3e})"
+        print(f"bench_step {cfg.name} decode_s {dtype}: logits kernels vs {what} max|err| "
+              f"{err:.3e} (tol {tol:.3e}; max|logit| {scale:.3e}); launches {c1}", flush=True)
+        if c1["flash_decode"] != n or any(v for k, v in c1.items() if k != "flash_decode") \
+                or any(c0.values()):
+            fail(f"bench_step: decode launches {c1} (on) / {c0} (off), expected {n} flash_decode")
+        if err > tol:
+            fail(f"bench_step: {dtype} decode logits disagree")
+        out[f"decode_{dtype}"] = {"logit_err": err, "launches": c1}
+    return out
+
+
+def measure_main():
+    """``chip_smoke.py --measure``, the measure phase's own process (its fake
+    process group stays out of the card phases): the corpus's witnesses and
+    controls that need no MoE, measured by ``measure_cell`` (V5E spec,
+    kernels off) on fake cuda tensors, each verdict held as the reference's
+    corpus replay holds it; the same points kernels on (nothing may launch
+    and no pointer may be read; the counter deltas are printed, not gated);
+    then qwen2-1.5b at train_4k on the 16x16 production mesh.  The last line
+    is a JSON summary."""
+    import dataclasses
+    import warnings
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the measure phase traces on cuda tensors")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import SHAPES, RunPolicy, get_config
+    from repro_torch.core import anomaly, parity
+    from repro_torch.core.benchscale import BENCH_SHAPES, bench_archs, bench_meshes
+    from repro_torch.core.counters import measure_cell
+    from repro_torch.core.searchspace import SearchSpace
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+
+    corpus = ROOT / "benchmarks" / "results" / "anomaly_corpus.json"
+    meta = json.loads(corpus.read_text())["meta"]
+    space = SearchSpace(bench_archs(meta["archs"]), BENCH_SHAPES,
+                        restrict={k: tuple(v) for k, v in meta["restrict"].items()})
+    meshes = bench_meshes()
+    summary = {"points": [], "full_width": None}
+    t_all = time.perf_counter()
+    for sig, kind, role, p in parity.corpus_points(corpus):
+        cfg, shape, policy, mk = space.to_run(space.normalize(p))
+        m = measure_cell(build_cell(cfg, shape, policy, meshes[mk]), device="cuda")
+        c = m.counters()
+        kinds = sorted(anomaly.kinds(c, policy.remat))
+        key = parity.point_key(p)
+        ok = parity.verdict_ok(kind, role, kinds) != (key in parity.VERDICT_DIFFERENCES)
+        print(f"measure {kind} {role} {key} cache_shard={p['cache_shard']} "
+              f"vocab_shard={p['vocab_shard']}: kinds {kinds}, trace {m.compile_s:.2f} s; "
+              f"counters {json.dumps(c)}; ops DTensor ran replicated "
+              f"{json.dumps(m.hlo['replicated_ops'])}", flush=True)
+        if not ok:
+            fail(f"measure: the {role} {key} of {sig} gives kinds {kinds}")
+        row = {"kind": kind, "role": role, "point": key, "kinds": kinds,
+               "trace_s": m.compile_s, "counters": c}
+        on = dataclasses.replace(policy, use_pallas=True)
+        before = ops.launch_counts()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*data.?p(oin)?t(e)?r.*")
+            try:
+                mo = measure_cell(build_cell(cfg, shape, on, meshes[mk]), device="cuda")
+            except RuntimeError as e:
+                if "no backward" not in str(e):
+                    raise
+                mo = None
+                print(f"measure kernels-on {key}: {cfg.name} has no kernel backward: "
+                      f"cannot train with the kernels on (as the reference)", flush=True)
+        if ops.launch_counts() != before:
+            fail(f"measure: the kernels-on trace of {key} launched kernels")
+        if mo is not None:
+            co = mo.counters()
+            delta = {k: co[k] - c[k] for k in c if co[k] != c[k]}
+            print(f"measure kernels-on {key}: kinds {sorted(anomaly.kinds(co, on.remat))}, "
+                  f"trace {mo.compile_s:.2f} s; launches unchanged; counter deltas "
+                  f"(on - off) {json.dumps(delta)}", flush=True)
+            row["kernels_on_delta"] = delta
+        summary["points"].append(row)
+    cfg, shape = get_config("qwen2-1.5b"), SHAPES["train_4k"]
+    t0 = time.perf_counter()
+    m = measure_cell(build_cell(cfg, shape, RunPolicy(), make_production_mesh()),
+                     device="cuda")
+    c = m.counters()
+    print(f"measure full width: {cfg.name} {shape.name} (seq {shape.seq_len}, batch "
+          f"{shape.global_batch}) on the 16x16 mesh, fsdp, remat dots: trace "
+          f"{m.compile_s:.2f} s ({time.perf_counter() - t0:.2f} s with the build); kinds "
+          f"{sorted(anomaly.kinds(c, 'dots'))}; counters {json.dumps(c)}; ops DTensor ran "
+          f"replicated {json.dumps(m.hlo['replicated_ops'])}", flush=True)
+    summary["full_width"] = {"trace_s": m.compile_s, "counters": c}
+    summary["seconds"] = time.perf_counter() - t_all
+    print(json.dumps({"measure": summary}), flush=True)
+
+
+def measure_phase():
+    """Run ``measure_main`` in a process of its own; its failure fails the run."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure"],
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+        fail("measure: the measure phase failed")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["measure"]
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -1554,13 +1896,16 @@ def main():
             for w in warnings:
                 print(f"ptxas {name} {kernel}: {w}", flush=True)
 
+    phase_seconds = {}
     phase("kernels")
+    t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     timer = Timer(dev)
     tiny = torch.zeros(1, device=dev)
+    floor_ms = timer.ms(lambda: tiny.add_(1), iters=50)
     print(f"timer floor: one launch of a 1-element add, timed as the kernels are: "
-          f"{timer.ms(lambda: tiny.add_(1), iters=50):.4f} ms", flush=True)
+          f"{floor_ms:.4f} ms", flush=True)
     fa = check_flash_attention(gen, dev, timer)
     fd = check_flash_decode(gen, dev, timer)
     bwd = check_flash_attention_bwd(gen, dev, timer)
@@ -1568,10 +1913,37 @@ def main():
     fd["d256"] = check_flash_decode_d256(gen, dev, timer)
     rg_row = check_rglru_scan(gen, dev, timer)
     wkv_row = check_rwkv6_wkv(gen, dev, timer)
+    phase_seconds["kernels"] = time.perf_counter() - t_phase
+
+    phase("kernels_d32")
+    t_phase = time.perf_counter()
+    d32 = check_attention_d32(gen, dev, timer, f"timer floor {floor_ms:.4f} ms; {smi_line}")
+    fa["d32"] = d32["flash_attention_fwd"]
+    bwd["flash_attention_bwd_dq"]["d32"] = d32["flash_attention_bwd_dq"]
+    bwd["flash_attention_bwd_dkv"]["d32"] = d32["flash_attention_bwd_dkv"]
+    phase_seconds["kernels_d32"] = time.perf_counter() - t_phase
     del timer
     torch.cuda.empty_cache()
 
+    phase("bench_step")
+    t_phase = time.perf_counter()
+    bench = bench_step(dev)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        row = fa if name == "flash_attention_fwd" else bwd[name]
+        row["d32"]["bench_train_launches"] = bench["train_bf16"]["launches"][name]
+    fd["bench_decode_launches"] = bench["decode_bf16"]["launches"]["flash_decode"]
+    phase_seconds["bench_step"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    phase("measure")
+    t_phase = time.perf_counter()
+    measured = measure_phase()
+    phase_seconds["measure"] = time.perf_counter() - t_phase
+    print(f"measure: {len(measured['points'])} corpus points, kernels off and on, and the "
+          f"full-width point in {measured['seconds']:.1f} s", flush=True)
+
     phase("serve")
+    t_phase = time.perf_counter()
     counts, in_model = serve(dev)
     for name, row in (("flash_attention_fwd", fa), ("flash_decode", fd)):
         st = in_model[name]
@@ -1580,9 +1952,12 @@ def main():
         row["in_model_max_scaled_err"] = st["max_scaled_err"]
     torch.cuda.empty_cache()
 
+    phase_seconds["serve"] = time.perf_counter() - t_phase
     phase("train")
+    t_phase = time.perf_counter()
     train_counts, bwd_in_model, f32_grad_err = train(dev)
     torch.cuda.empty_cache()
+    phase_seconds["train"] = time.perf_counter() - t_phase
     fa["train_launches"] = train_counts["flash_attention_fwd"]
     for name, grads in (("flash_attention_bwd_dq", ("dq",)),
                         ("flash_attention_bwd_dkv", ("dk", "dv"))):
@@ -1593,6 +1968,7 @@ def main():
         row["f32_step_grad_rel_err"] = f32_grad_err
 
     phase("serve recurrentgemma-2b")
+    t_phase = time.perf_counter()
     # the reference's engine takes no cache longer than the window (ROADMAP queue 3)
     hybrid = recurrent(dev, "recurrentgemma-2b", cache_len=2048, max_prompt=2000)
     phase("serve rwkv6-7b")
@@ -1610,6 +1986,10 @@ def main():
               f"{run['decode_ms_median']:.3f}, {run['tokens_per_s']:.1f} tokens/s, peak "
               f"{run['peak_gb']:.2f} GB; f32 scoring logits, kernels vs plain, "
               f"{run['f32_logit_err']:.3e} of the largest logit", flush=True)
+
+    phase_seconds["serve recurrent"] = time.perf_counter() - t_phase
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_seconds.items()})}",
+          flush=True)
 
     phase("report")
     kernels = [
@@ -1641,7 +2021,7 @@ def main():
              launches=ssm["serve_launches"]["rwkv6_wkv"], tolerance=WKV_REL_TOL, **wkv_row),
     ]
     for kr in kernels:
-        rows = [kr] + ([kr["d256"]] if "d256" in kr else [])
+        rows = [kr] + [kr[d] for d in ("d256", "d32") if d in kr]
         if not all(math.isfinite(r[k]) for r in rows
                    for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite numbers for {kr['name']}")
@@ -1656,4 +2036,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--measure"]:
+        measure_main()
+    else:
+        main()

@@ -79,7 +79,9 @@ class RunPolicy:
     capacity_factor: float = 1.25
 
     def rules_dict(self):
-        raise NotImplementedError("sharding: later slice")
+        from ..launch.sharding import make_rules
+        return make_rules(self.sharding_preset,
+                          **{k: list(v) for k, v in self.rule_overrides})
 
 
 _REGISTRY: dict[str, ModelConfig] = {}

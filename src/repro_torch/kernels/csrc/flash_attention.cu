@@ -70,7 +70,10 @@ struct FwdParams {
   Args a;
 };
 
-template <int D>
+// D is the tile's head dim (64, 128, 256); DH the tensors' (D, or 32 in a
+// 64-column tile: TMA fills the columns past 32 with zeros, so they add
+// nothing to Q K^T and give zero columns of O, which are not stored).
+template <int D, int DH = D>
 __global__ void __launch_bounds__(384, 1) fwd_bf16(const __grid_constant__ FwdParams p) {
   using T = FwdTile<D>;
   constexpr int BK = T::BK;
@@ -293,7 +296,7 @@ __global__ void __launch_bounds__(384, 1) fwd_bf16(const __grid_constant__ FwdPa
     const float il0 = 1.f / fmaxf(l0, 1e-30f), il1 = 1.f / fmaxf(l1, 1e-30f);
     bf16* op = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       const int col = 8 * j + 2 * c;
       if (r0 < a.Sq)
         *reinterpret_cast<uint32_t*>(op + r0 * a.o_ss + col) = pack_bf16(o[4 * j] * il0, o[4 * j + 1] * il0);
@@ -309,17 +312,17 @@ __global__ void __launch_bounds__(384, 1) fwd_bf16(const __grid_constant__ FwdPa
   }
 }
 
-template <int D>
+template <int D, int DH = D>
 int launch_fwd_bf16(const Args& a, cudaStream_t st) {
   using T = FwdTile<D>;
   FwdParams p;
   p.a = a;
-  if (!hopper::make_map(&p.tq, a.q, a.B, a.H, a.Sq, D, a.q_sb, a.q_sh, a.q_ss, FWD_BQ) ||
-      !hopper::make_map(&p.tk, a.k, a.B, a.KVH, a.Skv, D, a.k_sb, a.k_sh, a.k_ss, T::BK) ||
-      !hopper::make_map(&p.tv, a.v, a.B, a.KVH, a.Skv, D, a.v_sb, a.v_sh, a.v_ss, T::BK))
+  if (!hopper::make_map(&p.tq, a.q, a.B, a.H, a.Sq, DH, a.q_sb, a.q_sh, a.q_ss, FWD_BQ) ||
+      !hopper::make_map(&p.tk, a.k, a.B, a.KVH, a.Skv, DH, a.k_sb, a.k_sh, a.k_ss, T::BK) ||
+      !hopper::make_map(&p.tv, a.v, a.B, a.KVH, a.Skv, DH, a.v_sb, a.v_sh, a.v_ss, T::BK))
     return 1001;
   dim3 grid(a.H, (a.Sq + FWD_BQ - 1) / FWD_BQ, a.B);
-  return launch(fwd_bf16<D>, grid, 384, T::SMEM, st, p);
+  return launch(fwd_bf16<D, DH>, grid, 384, T::SMEM, st, p);
 }
 
 // --------------------------------------------------------------- f32: FMAs
@@ -463,12 +466,14 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, floa
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH || Sq <= 0 || Skv <= 0) return 1000;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    if (D == 32) return launch_fwd_bf16<64, 32>(a, st);
     if (D == 64) return launch_fwd_bf16<64>(a, st);
     if (D == 128) return launch_fwd_bf16<128>(a, st);
     if (D == 256) return launch_fwd_bf16<256>(a, st);
   } else if (dtype == 0) {
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     auto smem = [](int d) { return (size_t)(BQ * (d + 1) + d * (BK + 1) + BK * d + BQ * (BK + 1)) * 4; };
+    if (D == 32) return launch(fwd_f32<32>, grid, 256, smem(32), st, a);
     if (D == 64) return launch(fwd_f32<64>, grid, 256, smem(64), st, a);
     if (D == 128) return launch(fwd_f32<128>, grid, 256, smem(128), st, a);
     if (D == 256) return launch(fwd_f32<256>, grid, 256, smem(256), st, a);

@@ -123,7 +123,9 @@ struct DqParams {
   BwdArgs a;
 };
 
-template <int D>
+// D is the tile's head dim (64, 128); DH the tensors' (D, or 32 in a
+// 64-column tile, whose columns past 32 TMA fills with zeros).
+template <int D, int DH = D>
 __global__ void __launch_bounds__(384, 1) dq_bf16(const __grid_constant__ DqParams p) {
   using T = DqTile<D>;
   using bf16 = __nv_bfloat16;
@@ -206,7 +208,7 @@ __global__ void __launch_bounds__(384, 1) dq_bf16(const __grid_constant__ DqPara
       float acc = 0.f;
       if (row < a.Sq) {
 #pragma unroll
-        for (int m = 0; m < D / 32; ++m) {
+        for (int m = 0; m < DH / 32; ++m) {
           const int col = (c + 4 * m) * 8;
           const uint4 ov = *reinterpret_cast<const uint4*>(op + row * a.o_ss + col);
           const uint4 dv = *reinterpret_cast<const uint4*>(dop + row * a.do_ss + col);
@@ -358,7 +360,7 @@ __global__ void __launch_bounds__(384, 1) dq_bf16(const __grid_constant__ DqPara
 
     bf16* dqp = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       const int col = 8 * j + 2 * c;
       if (r0 < a.Sq)
         *reinterpret_cast<uint32_t*>(dqp + r0 * a.dq_ss + col) = pack_bf16(dq[4 * j], dq[4 * j + 1]);
@@ -368,17 +370,17 @@ __global__ void __launch_bounds__(384, 1) dq_bf16(const __grid_constant__ DqPara
   }
 }
 
-template <int D>
+template <int D, int DH = D>
 int launch_dq_bf16(const BwdArgs& a, cudaStream_t st) {
   DqParams p;
   p.a = a;
-  if (!hopper::make_map(&p.tq, a.q, a.B, a.H, a.Sq, D, a.q_sb, a.q_sh, a.q_ss, DQ_BQ) ||
-      !hopper::make_map(&p.tdo, a.dout, a.B, a.H, a.Sq, D, a.do_sb, a.do_sh, a.do_ss, DQ_BQ) ||
-      !hopper::make_map(&p.tk, a.k, a.B, a.KVH, a.Skv, D, a.k_sb, a.k_sh, a.k_ss, DQ_BK) ||
-      !hopper::make_map(&p.tv, a.v, a.B, a.KVH, a.Skv, D, a.v_sb, a.v_sh, a.v_ss, DQ_BK))
+  if (!hopper::make_map(&p.tq, a.q, a.B, a.H, a.Sq, DH, a.q_sb, a.q_sh, a.q_ss, DQ_BQ) ||
+      !hopper::make_map(&p.tdo, a.dout, a.B, a.H, a.Sq, DH, a.do_sb, a.do_sh, a.do_ss, DQ_BQ) ||
+      !hopper::make_map(&p.tk, a.k, a.B, a.KVH, a.Skv, DH, a.k_sb, a.k_sh, a.k_ss, DQ_BK) ||
+      !hopper::make_map(&p.tv, a.v, a.B, a.KVH, a.Skv, DH, a.v_sb, a.v_sh, a.v_ss, DQ_BK))
     return 1001;
   dim3 grid(a.H, (a.Sq + DQ_BQ - 1) / DQ_BQ, a.B);
-  return launch(dq_bf16<D>, grid, 384, DqTile<D>::SMEM, st, p);
+  return launch(dq_bf16<D, DH>, grid, 384, DqTile<D>::SMEM, st, p);
 }
 
 // ------------------------------------------ dk/dv bf16: TMA, wgmma, warp-specialised
@@ -403,7 +405,9 @@ struct DkvParams {
   float* part;                     // (2, B, H, Skv, D): dk, then dv, per query head
 };
 
-template <int D>
+// D is the tile's head dim (64, 128); DH the tensors' and the partials' (D,
+// or 32 in a 64-column tile, whose columns past 32 TMA fills with zeros).
+template <int D, int DH = D>
 __global__ void __launch_bounds__(384, 1) dkv_bf16(const __grid_constant__ DkvParams p) {
   using T = DkvTile<D>;
   using bf16 = __nv_bfloat16;
@@ -609,19 +613,19 @@ __global__ void __launch_bounds__(384, 1) dkv_bf16(const __grid_constant__ DkvPa
     }
 
     // this query head's partial dk and dv, f32 (zeros when no q tile was live)
-    const long long plane = (long long)a.B * a.H * a.Skv * D;
-    float* pk = p.part + (((long long)b * a.H + h) * a.Skv) * D;
+    const long long plane = (long long)a.B * a.H * a.Skv * DH;
+    float* pk = p.part + (((long long)b * a.H + h) * a.Skv) * DH;
     float* pv = pk + plane;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       const int col = 8 * j + 2 * c;
       if (kr0 < a.Skv) {
-        *reinterpret_cast<float2*>(pk + (long long)kr0 * D + col) = make_float2(dk[4 * j], dk[4 * j + 1]);
-        *reinterpret_cast<float2*>(pv + (long long)kr0 * D + col) = make_float2(dv[4 * j], dv[4 * j + 1]);
+        *reinterpret_cast<float2*>(pk + (long long)kr0 * DH + col) = make_float2(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<float2*>(pv + (long long)kr0 * DH + col) = make_float2(dv[4 * j], dv[4 * j + 1]);
       }
       if (kr1 < a.Skv) {
-        *reinterpret_cast<float2*>(pk + (long long)kr1 * D + col) = make_float2(dk[4 * j + 2], dk[4 * j + 3]);
-        *reinterpret_cast<float2*>(pv + (long long)kr1 * D + col) = make_float2(dv[4 * j + 2], dv[4 * j + 3]);
+        *reinterpret_cast<float2*>(pk + (long long)kr1 * DH + col) = make_float2(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<float2*>(pv + (long long)kr1 * DH + col) = make_float2(dv[4 * j + 2], dv[4 * j + 3]);
       }
     }
   }
@@ -656,21 +660,21 @@ __global__ void __launch_bounds__(256) dkv_reduce(const float* part, BwdArgs a, 
   *reinterpret_cast<uint2*>(dst + b * sb + kh * sh + key * ss + col) = out;
 }
 
-template <int D>
+template <int D, int DH = D>
 int launch_dkv_bf16(const BwdArgs& a, float* part, cudaStream_t st) {
   DkvParams p;
   p.a = a;
   p.part = part;
-  if (!hopper::make_map(&p.tq, a.q, a.B, a.H, a.Sq, D, a.q_sb, a.q_sh, a.q_ss, DKV_BQ) ||
-      !hopper::make_map(&p.tdo, a.dout, a.B, a.H, a.Sq, D, a.do_sb, a.do_sh, a.do_ss, DKV_BQ) ||
-      !hopper::make_map(&p.tk, a.k, a.B, a.KVH, a.Skv, D, a.k_sb, a.k_sh, a.k_ss, DKV_BK) ||
-      !hopper::make_map(&p.tv, a.v, a.B, a.KVH, a.Skv, D, a.v_sb, a.v_sh, a.v_ss, DKV_BK))
+  if (!hopper::make_map(&p.tq, a.q, a.B, a.H, a.Sq, DH, a.q_sb, a.q_sh, a.q_ss, DKV_BQ) ||
+      !hopper::make_map(&p.tdo, a.dout, a.B, a.H, a.Sq, DH, a.do_sb, a.do_sh, a.do_ss, DKV_BQ) ||
+      !hopper::make_map(&p.tk, a.k, a.B, a.KVH, a.Skv, DH, a.k_sb, a.k_sh, a.k_ss, DKV_BK) ||
+      !hopper::make_map(&p.tv, a.v, a.B, a.KVH, a.Skv, DH, a.v_sb, a.v_sh, a.v_ss, DKV_BK))
     return 1001;
   dim3 grid(a.H, (a.Skv + DKV_BK - 1) / DKV_BK, a.B);
-  int e = launch(dkv_bf16<D>, grid, 384, DkvTile<D>::SMEM, st, p);
+  int e = launch(dkv_bf16<D, DH>, grid, 384, DkvTile<D>::SMEM, st, p);
   if (e) return e;
-  const long long n = (long long)a.B * a.KVH * a.Skv * (D / 4);
-  dkv_reduce<<<dim3((unsigned)((n + 255) / 256), 2), 256, 0, st>>>(part, a, D);
+  const long long n = (long long)a.B * a.KVH * a.Skv * (DH / 4);
+  dkv_reduce<<<dim3((unsigned)((n + 255) / 256), 2), 256, 0, st>>>(part, a, DH);
   return cudaGetLastError();
 }
 
@@ -966,11 +970,13 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v, const void
             window, causal_shift, 1.0f / sqrtf((float)D)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    if (D == 32) return launch_dq_bf16<64, 32>(a, st);
     if (D == 64) return launch_dq_bf16<64>(a, st);
     if (D == 128) return launch_dq_bf16<128>(a, st);
   } else if (dtype == 0) {
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     auto smem = [](int d) { return (size_t)(2 * BQ * (d + 1) + 2 * d * (BK + 1) + BQ * (BK + 1)) * 4; };
+    if (D == 32) return launch(dq_f32<32>, grid, 256, smem(32), st, a);
     if (D == 64) return launch(dq_f32<64>, grid, 256, smem(64), st, a);
     if (D == 128) return launch(dq_f32<128>, grid, 256, smem(128), st, a);
   }
@@ -999,6 +1005,7 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (part == nullptr) return 1000;
+    if (D == 32) return launch_dkv_bf16<64, 32>(a, part, st);
     if (D == 64) return launch_dkv_bf16<64>(a, part, st);
     if (D == 128) return launch_dkv_bf16<128>(a, part, st);
   } else if (dtype == 0) {
@@ -1006,6 +1013,7 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v, const voi
     auto smem = [](int d) {
       return (size_t)(2 * BK * (d + 1) + 2 * d * (BQ + 1) + 2 * BK * (BQ + 1) + 2 * BQ) * 4;
     };
+    if (D == 32) return launch(dkv_f32<32>, grid, 256, smem(32), st, a);
     if (D == 64) return launch(dkv_f32<64>, grid, 256, smem(64), st, a);
     if (D == 128) return launch(dkv_f32<128>, grid, 256, smem(128), st, a);
   }

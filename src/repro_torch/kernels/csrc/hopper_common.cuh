@@ -86,7 +86,9 @@ inline EncodeTiled encode_tiled() {
 
 // A bf16 (B, heads, S, D) tensor, D contiguous, (batch, head, row) strides in
 // elements, as a 4-D map over (D, S, heads, B) whose box is one 128-byte
-// swizzled panel: 64 columns by `rows` rows.  A stride of a dim of size 1 is
+// swizzled panel: 64 columns by `rows` rows.  At D = 32 the box is wider than
+// the tensor: a load fills the columns past D with zeros (and still counts
+// the whole box's bytes on its mbarrier).  A stride of a dim of size 1 is
 // never stepped; it is replaced by a valid one.  False if the encoder refuses.
 inline bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D,
                      long long sb, long long sh, long long ss, int rows) {

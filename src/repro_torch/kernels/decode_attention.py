@@ -16,11 +16,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
 from . import build
 from .ref import flash_decode_ref
+from .traceable import R, S, flops, mesh_divides, shardings
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -105,8 +107,15 @@ def flash_decode(q, k, v, pos, qpos, *, window=None):
     """Attention of one query token per (b, h) over the cache.  Returns (B,H,D).
 
     A CPU tensor goes to the plain version; a CUDA tensor launches the
-    kernel (and counts the launch in ``flash_decode.launches``) or raises.
+    kernel (and counts the launch in ``flash_decode.launches``) or raises;
+    a fake tensor gets the output's shape.
     """
+    return _decode_op(q, k, v, pos, qpos, window)
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=())
+def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+               qpos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, pos, qpos, window=window)
     if q.device.type != "cuda":
@@ -153,8 +162,35 @@ def flash_decode(q, k, v, pos, qpos, *, window=None):
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode: kernel launch failed (error {err})")
-    flash_decode.launches += 1
+    _COUNTED.launches += 1
     return o
 
 
+@_decode_op.register_fake
+def _(q, k, v, pos, qpos, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@flops(torch.ops.repro_torch.flash_decode)
+def _(q_shape, k_shape, v_shape, pos_shape, qpos_shape, window, *args, out_shape=None,
+      **kw):
+    """Q K^T and P V over the cache's slots (at most the window): which slots
+    are filled is data, so a full cache is counted, as the analytic floor
+    counts min(S, window)."""
+    B, H, D = q_shape
+    T = k_shape[2]
+    return 4 * B * H * D * (T if window is None else min(T, window))
+
+
+@shardings(torch.ops.repro_torch.flash_decode.default)
+def _(q, k, v, pos, qpos, window):
+    """Batch (q, k, v, pos, qpos), or query and KV heads together where each
+    mesh dim divides both (pos and qpos replicated); never the cache's slots."""
+    out = [([R], [R, R, R, R, R, None]), ([S(0)], [S(0)] * 5 + [None])]
+    if mesh_divides(q, q.shape[1], k.shape[1]):
+        out.append(([S(1)], [S(1), S(1), S(1), R, R, None]))
+    return out
+
+
 flash_decode.launches = 0
+_COUNTED = flash_decode    # where the op's launches are counted

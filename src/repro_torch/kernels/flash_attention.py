@@ -9,20 +9,28 @@ head h reads KV head h // G.  The inputs may be strided views (the model
 passes transposed views of its (B,S,H,D) activations, so nothing is copied);
 only the last dim must be contiguous.  Outputs are allocated in (B,S,heads,D)
 memory and returned as (B,heads,S,D) views, the layout the model reads back.
+
+Each kernel is a ``torch.library.custom_op`` (``repro_torch::...``) with a
+fake implementation, a FLOP formula and a DTensor sharding rule
+(``traceable.py``), so the measurement layer traces it on fake tensors and
+DTensors; the wrappers below check what only the caller can (autograd) and
+call the ops.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from . import build
 from .ref import (flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
                   flash_attention_ref)
+from .traceable import R, S, flops, mesh_divides, shardings, visible_pairs
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FWD_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+FWD_HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 128)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -99,14 +107,57 @@ def flash_attention_fwd(q, k, v, *, window=None, causal_shift=0):
 
     A CPU tensor goes to the plain version; a CUDA tensor launches the
     kernel (and counts the launch in ``flash_attention_fwd.launches``) or
-    raises.  The kernel's output has no autograd history, so a call whose
-    inputs require grad, with grad mode on, raises on every device (the CPU
-    too, so that the CPU tests catch what would train wrongly on the card):
-    differentiable callers use ``flash_attention``.
+    raises; a fake tensor gets the output shapes.  The kernel's output has
+    no autograd history, so a call whose inputs require grad, with grad mode
+    on, raises on every device (the CPU too, so that the CPU tests catch
+    what would train wrongly on the card): differentiable callers use
+    ``flash_attention``.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention_fwd: the inputs require grad but the "
                            "kernel's output would carry none; call flash_attention")
+    return tuple(_fwd_op(q, k, v, window, int(causal_shift)))
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, *, window=None, causal_shift=0):
+    """First part of the backward: (dq (B,H,Sq,D), delta (B,H,Sq) f32), with
+    delta = rowsum(do * o), which ``flash_attention_bwd_dkv`` reads.
+
+    CPU tensors go to the plain version; CUDA tensors launch the kernel
+    (counted in ``flash_attention_bwd_dq.launches``) or raise.
+    """
+    return tuple(_dq_op(q, k, v, o, lse, do, window, int(causal_shift)))
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, window=None, causal_shift=0):
+    """Second part of the backward: (dk, dv) (B,KVH,Skv,D), summed over the G
+    query heads of each KV head (in a fixed order: two calls give the same
+    bits).
+
+    CPU tensors go to the plain version; CUDA tensors launch the kernel and
+    its reduction pass, one call counted once in
+    ``flash_attention_bwd_dkv.launches``, or raise.
+    """
+    return tuple(_dkv_op(q, k, v, lse, delta, do, window, int(causal_shift)))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, window=None, causal_shift=0):
+    """Backward of causal GQA attention given its output ``o``, its ``lse``
+    and the output's gradient ``do``.  Returns (dq, dk, dv) in the inputs'
+    dtypes.  CPU tensors go to the plain versions; CUDA tensors launch both
+    kernels (dq first: it writes the delta that dk/dv reads) or raise."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, window=window,
+                                       causal_shift=causal_shift)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, window=window,
+                                     causal_shift=causal_shift)
+    return dq, dk, dv
+
+
+# ------------------------------------------------------------ the custom ops
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+            causal_shift: int) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window, causal_shift=causal_shift)
     B, H, KVH, Sq, Skv, D = _check_inputs("flash_attention_fwd", q, k, v, window,
@@ -119,17 +170,21 @@ def flash_attention_fwd(q, k, v, *, window=None, causal_shift=0):
          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
          0 if window is None else int(window), int(causal_shift),
          _DTYPES[q.dtype], q.device)
-    flash_attention_fwd.launches += 1
+    _COUNTS["fwd"].launches += 1
     return o, lse
 
 
-def flash_attention_bwd_dq(q, k, v, o, lse, do, *, window=None, causal_shift=0):
-    """First part of the backward: (dq (B,H,Sq,D), delta (B,H,Sq) f32), with
-    delta = rowsum(do * o), which ``flash_attention_bwd_dkv`` reads.
+@_fwd_op.register_fake
+def _(q, k, v, window, causal_shift):
+    B, H, Sq, D = q.shape
+    return (_heads_major(B, Sq, H, D, q),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
 
-    CPU tensors go to the plain version; CUDA tensors launch the kernel
-    (counted in ``flash_attention_bwd_dq.launches``) or raise.
-    """
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_dq", mutates_args=())
+def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+           lse: torch.Tensor, do: torch.Tensor, window: Optional[int],
+           causal_shift: int) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, o, lse, do, window, causal_shift)
     fn = "flash_attention_bwd_dq"
@@ -145,19 +200,21 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, window=None, causal_shift=0):
          *do.stride()[:3], *dq.stride()[:3],
          0 if window is None else int(window), int(causal_shift),
          _DTYPES[q.dtype], q.device)
-    flash_attention_bwd_dq.launches += 1
+    _COUNTS["dq"].launches += 1
     return dq, delta
 
 
-def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, window=None, causal_shift=0):
-    """Second part of the backward: (dk, dv) (B,KVH,Skv,D), summed over the G
-    query heads of each KV head (in a fixed order: two calls give the same
-    bits).
+@_dq_op.register_fake
+def _(q, k, v, o, lse, do, window, causal_shift):
+    B, H, Sq, D = q.shape
+    return (_heads_major(B, Sq, H, D, q),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
 
-    CPU tensors go to the plain version; CUDA tensors launch the kernel and
-    its reduction pass, one call counted once in
-    ``flash_attention_bwd_dkv.launches``, or raise.
-    """
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_dkv", mutates_args=())
+def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+            delta: torch.Tensor, do: torch.Tensor, window: Optional[int],
+            causal_shift: int) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window, causal_shift)
     fn = "flash_attention_bwd_dkv"
@@ -178,20 +235,67 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, window=None, causal_shif
          *dk.stride()[:3], *dv.stride()[:3],
          0 if window is None else int(window), int(causal_shift),
          _DTYPES[q.dtype], q.device)
-    flash_attention_bwd_dkv.launches += 1
+    _COUNTS["dkv"].launches += 1
     return dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, window=None, causal_shift=0):
-    """Backward of causal GQA attention given its output ``o``, its ``lse``
-    and the output's gradient ``do``.  Returns (dq, dk, dv) in the inputs'
-    dtypes.  CPU tensors go to the plain versions; CUDA tensors launch both
-    kernels (dq first: it writes the delta that dk/dv reads) or raise."""
-    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, window=window,
-                                       causal_shift=causal_shift)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, window=window,
-                                     causal_shift=causal_shift)
-    return dq, dk, dv
+@_dkv_op.register_fake
+def _(q, k, v, lse, delta, do, window, causal_shift):
+    B, KVH, Skv, D = k.shape
+    return _heads_major(B, Skv, KVH, D, k), _heads_major(B, Skv, KVH, D, v)
+
+
+# FLOPs: 2 D per visible (query, key) pair and query head for each product:
+# two in the forward (Q K^T, P V), three in dq (S, dP, dS K), four in dk/dv
+# (S^T, dP^T, P^T dO, dS^T Q)
+def _pairs(q_shape, k_shape, window, causal_shift):
+    B, H, Sq, D = q_shape
+    return B * H * D * visible_pairs(Sq, k_shape[2], window, causal_shift)
+
+
+@flops(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, v_shape, window, causal_shift, *args, out_shape=None, **kw):
+    return 4 * _pairs(q_shape, k_shape, window, causal_shift)
+
+
+@flops(torch.ops.repro_torch.flash_attention_bwd_dq)
+def _(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, window, causal_shift,
+      *args, out_shape=None, **kw):
+    return 6 * _pairs(q_shape, k_shape, window, causal_shift)
+
+
+@flops(torch.ops.repro_torch.flash_attention_bwd_dkv)
+def _(q_shape, k_shape, v_shape, lse_shape, delta_shape, do_shape, window, causal_shift,
+      *args, out_shape=None, **kw):
+    return 8 * _pairs(q_shape, k_shape, window, causal_shift)
+
+
+# Sharding: batch, or query and KV heads together (the same G on every
+# shard, so only where each mesh dim divides both head counts); sequence and
+# head dim are never split (each query row needs every key).
+def _attention_shardings(q, k, n_in, n_out):
+    """Placements of ``n_out`` outputs and ``n_in`` tensor inputs (all
+    (B, heads, ...)), then the two int arguments."""
+    out = [([R] * n_out, [R] * n_in + [None, None]),
+           ([S(0)] * n_out, [S(0)] * n_in + [None, None])]
+    if mesh_divides(q, q.shape[1], k.shape[1]):
+        out.append(([S(1)] * n_out, [S(1)] * n_in + [None, None]))
+    return out
+
+
+@shardings(torch.ops.repro_torch.flash_attention_fwd.default)
+def _(q, k, v, window, causal_shift):
+    return _attention_shardings(q, k, 3, 2)
+
+
+@shardings(torch.ops.repro_torch.flash_attention_bwd_dq.default)
+def _(q, k, v, o, lse, do, window, causal_shift):
+    return _attention_shardings(q, k, 6, 2)
+
+
+@shardings(torch.ops.repro_torch.flash_attention_bwd_dkv.default)
+def _(q, k, v, lse, delta, do, window, causal_shift):
+    return _attention_shardings(q, k, 6, 2)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -224,3 +328,7 @@ def flash_attention(q, k, v, window=None, causal_shift=0):
 flash_attention_fwd.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+# the wrappers whose counts the ops' launches go to (looked up once, so that a
+# caller who rebinds a module name for a check does not take the count)
+_COUNTS = {"fwd": flash_attention_fwd, "dq": flash_attention_bwd_dq,
+           "dkv": flash_attention_bwd_dkv}

@@ -8,7 +8,9 @@ Neither the TPU kernel nor this one has a gradient (the JAX package gives
 A block walks one sequential chain per channel for CHANNELS channels of one
 batch row, fed by a producer warp through a ring of STAGES tiles of STEPS
 steps (TMA where W is a multiple of 4, else 4-byte cp.async; the source's
-header says why); the constants mirror the source.
+header says why); the constants mirror the source.  The kernel is the custom
+op ``repro_torch::rglru_scan``, with a fake implementation, a FLOP formula and
+a DTensor sharding rule (``traceable.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from . import build
 from .ref import rglru_scan_ref
+from .traceable import R, S, flops, shardings
 
 CHANNELS = 16     # channels per block (CW in the source)
 STEPS = 64        # steps per ring stage
@@ -44,6 +47,11 @@ def rglru_scan(a, b):
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise RuntimeError("rglru_scan: the inputs require grad but the kernel has "
                            "no backward (nor has the TPU kernel it replaces)")
+    return _scan_op(a, b)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _scan_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":
@@ -64,8 +72,28 @@ def rglru_scan(a, b):
                  torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"rglru_scan: kernel launch failed (error {err})")
-    rglru_scan.launches += 1
+    _COUNTED.launches += 1
     return h
 
 
+@_scan_op.register_fake
+def _(a, b):
+    return torch.empty_like(a, memory_format=torch.contiguous_format)
+
+
+@flops(torch.ops.repro_torch.rglru_scan)
+def _(a_shape, b_shape, *args, out_shape=None, **kw):
+    """One multiply and one add per step and channel."""
+    B, S_, W = a_shape
+    return 2 * B * S_ * W
+
+
+@shardings(torch.ops.repro_torch.rglru_scan.default)
+def _(a, b):
+    """Batch or channels: each channel's chain is independent; never the
+    sequence."""
+    return [([R], [R, R]), ([S(0)], [S(0), S(0)]), ([S(2)], [S(2), S(2)])]
+
+
 rglru_scan.launches = 0
+_COUNTED = rglru_scan       # where the op's launches are counted

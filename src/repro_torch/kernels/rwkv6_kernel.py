@@ -8,6 +8,8 @@ place): the last dim contiguous, rows 16-byte aligned; u (H,hs).  The kernel ret
 the output and also the state after the last token, which prefill keeps for
 decode.  Neither the TPU kernel nor this one has a gradient (the JAX package
 gives ``ops.rwkv6`` no VJP), so the wrapper refuses inputs that require grad.
+The kernel is the custom op ``repro_torch::rwkv6_wkv``, with a fake
+implementation, a FLOP formula and a DTensor sharding rule (``traceable.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from . import build
 from .ref import rwkv6_wkv_ref
+from .traceable import R, S, flops, shardings
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (32, 64)
@@ -45,6 +48,12 @@ def rwkv6_wkv(r, k, v, w_log, u):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w_log, u)):
         raise RuntimeError("rwkv6_wkv: the inputs require grad but the kernel has "
                            "no backward (nor has the TPU kernel it replaces)")
+    return tuple(_wkv_op(r, k, v, w_log, u))
+
+
+@torch.library.custom_op("repro_torch::rwkv6_wkv", mutates_args=())
+def _wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w_log: torch.Tensor,
+            u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if r.device.type == "cpu":
         return rwkv6_wkv_ref(r, k, v, w_log, u)
     if r.device.type != "cuda":
@@ -87,8 +96,32 @@ def rwkv6_wkv(r, k, v, w_log, u):
                  torch.cuda.current_stream(r.device).cuda_stream)
     if err:
         raise RuntimeError(f"rwkv6_wkv: kernel launch failed (error {err})")
-    rwkv6_wkv.launches += 1
+    _COUNTED.launches += 1
     return o, state
 
 
+@_wkv_op.register_fake
+def _(r, k, v, w_log, u):
+    B, H, S_, hs = r.shape
+    return (r.new_empty((B, S_, H, hs), dtype=torch.float32).permute(0, 2, 1, 3),
+            r.new_empty((B, H, hs, hs), dtype=torch.float32))
+
+
+@flops(torch.ops.repro_torch.rwkv6_wkv)
+def _(r_shape, k_shape, v_shape, w_shape, u_shape, *args, out_shape=None, **kw):
+    """4 hs^2 per token and head (the state's decay and update, the readout
+    and the bonus), as the analytic floor's recurrence term counts."""
+    B, H, S_, hs = r_shape
+    return 4 * B * H * S_ * hs * hs
+
+
+@shardings(torch.ops.repro_torch.rwkv6_wkv.default)
+def _(r, k, v, w_log, u):
+    """Batch, or heads (u on its head dim); never the sequence."""
+    return [([R, R], [R] * 5),
+            ([S(0), S(0)], [S(0)] * 4 + [R]),
+            ([S(1), S(1)], [S(1)] * 4 + [S(0)])]
+
+
 rwkv6_wkv.launches = 0
+_COUNTED = rwkv6_wkv        # where the op's launches are counted

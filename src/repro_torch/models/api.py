@@ -10,9 +10,10 @@ import functools
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeSpec
 from . import transformer as tfm
-from .module import count_params, init_params, is_spec, param_shapes
+from .module import (count_params, init_params, is_spec, param_axes, param_shapes,
+                     tree_paths)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -39,8 +40,73 @@ def abstract_params(cfg: ModelConfig, param_dtype=torch.float32):
     return param_shapes(specs(cfg), param_dtype)
 
 
+def axes(cfg: ModelConfig):
+    return param_axes(specs(cfg))
+
+
 def n_params(cfg: ModelConfig) -> int:
     return count_params(specs(cfg))
+
+
+def n_active_params(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k of n_experts)."""
+    total = count_params(specs(cfg))
+    if not cfg.n_experts:
+        return total
+    expert_p = 3 * cfg.d_model * cfg.d_ff * cfg.n_experts * cfg.n_layers
+    active = expert_p * cfg.top_k // cfg.n_experts
+    return total - expert_p + active
+
+
+def matmul_active_params(cfg: ModelConfig) -> int:
+    """Params that participate in per-token matmuls (MoE at top_k/E).
+
+    Excludes the input-embedding gather (no FLOPs) but includes the unembed
+    projection once (tied or untied) — the stable numerator for the
+    useful-FLOPs anomaly check at any model scale.
+    """
+    total = 0
+    for path, s in tree_paths(specs(cfg)):
+        if len(s.shape) < 2:
+            continue
+        n = int(np.prod(s.shape))
+        if path[0] == "embed":
+            if not cfg.tie_embeddings:
+                continue                       # gather only
+        if path[0] == "units" and len(s.axes) > 1 and s.axes[1] == "expert":
+            n = n * cfg.top_k // max(cfg.n_experts, 1)   # routed experts
+        total += n
+    return total
+
+
+# ----------------------------------------------------------------- input specs
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, compute_dtype=torch.bfloat16):
+    """(batch_shapes, batch_axes) for the step function of this cell: leaves
+    are (shape, dtype) pairs.  The vit and encodec frontends' inputs wait for
+    their ROADMAP item, as their blocks do."""
+    tfm._check_supported(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        shapes = {"tokens": ((B, S), i32)}
+        axes_ = {"tokens": ("batch", None)}
+        if shape.kind == "train":
+            shapes["labels"] = ((B, S), i32)
+            axes_["labels"] = ("batch", None)
+        return shapes, axes_
+    if shape.kind == "decode":
+        return ({"tokens": ((B, 1), i32), "position": ((B,), i32)},
+                {"tokens": ("batch", None), "position": ("batch",)})
+    raise ValueError(shape.kind)
+
+
+def state_specs(cfg: ModelConfig, shape: ShapeSpec, compute_dtype=torch.bfloat16):
+    """KV-cache / recurrent-state (shape, dtype) leaves and logical axes for
+    decode."""
+    B, S = shape.global_batch, shape.seq_len
+    return (tfm.model_state_shapes(cfg, B, S, compute_dtype),
+            tfm.model_state_axes(cfg))
 
 
 def from_numpy_params(cfg: ModelConfig, tree, device="cuda"):

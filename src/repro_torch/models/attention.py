@@ -24,6 +24,7 @@ import torch
 
 from ..kernels.decode_attention import flash_decode
 from ..kernels.flash_attention import flash_attention
+from ..launch.sharding import maybe_constrain, pad as padded, rules_active
 from .layers import apply_rope, proj_heads
 from .module import ParamSpec
 
@@ -118,11 +119,11 @@ def local_chunk_attention(q, k, v, positions_q, positions_kv, window):
     nc = -(-S // C)
     pad = nc * C - S
     if pad:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        positions_q = torch.nn.functional.pad(positions_q, (0, pad), value=-(2**30))
-        positions_kv = torch.nn.functional.pad(positions_kv, (0, pad), value=2**30)
+        q = padded(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        k = padded(k, (0, 0, 0, 0, 0, pad))
+        v = padded(v, (0, 0, 0, 0, 0, pad))
+        positions_q = padded(positions_q, (0, pad), value=-(2**30))
+        positions_kv = padded(positions_kv, (0, pad), value=2**30)
     qc = q.reshape(B, nc, C, KV, G, dh)
     kc = k.reshape(B, nc, C, KV, dh)
     vc = v.reshape(B, nc, C, KV, dh)
@@ -150,6 +151,11 @@ def cache_shapes(batch, cache_len, n_kv, d_head, dtype):
             "pos": ((batch, cache_len), torch.int32)}
 
 
+CACHE_AXES = {"k": ("batch", "cache_seq", "kv_heads", "head_dim"),
+              "v": ("batch", "cache_seq", "kv_heads", "head_dim"),
+              "pos": ("batch", "cache_seq")}
+
+
 def decode_attention(p, cache, x, position, *, n_heads, n_kv, d_head,
                      rope_theta, window=None, use_rope=True, use_kernel=False):
     """One-token decode. x: (B,1,D); position: (B,) int32 current index.
@@ -166,12 +172,23 @@ def decode_attention(p, cache, x, position, *, n_heads, n_kv, d_head,
     q, k, v = qkv_proj(p, x, n_heads, n_kv, d_head, position[:, None],
                        rope_theta, use_rope)
     slot = position % T if window is not None else torch.clamp(position, max=T - 1)
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][bidx, slot] = position.to(torch.int32)
+    if rules_active():
+        # under sharding rules (the measurement's traces), the JAX package's
+        # masked-where write: elementwise over the cache, so it partitions
+        # under cache_seq sharding, where a scatter would need the slot's shard
+        hit = torch.arange(T, dtype=torch.int32, device=x.device)[None, :] == slot[:, None]
+        for name, new in (("k", k), ("v", v), ("pos", position[:, None].to(torch.int32))):
+            c = cache[name]
+            mask = hit[..., None, None] if c.dim() == 4 else hit
+            c.copy_(torch.where(mask, new.to(c.dtype), c))
+    else:
+        bidx = torch.arange(B, device=x.device)
+        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][bidx, slot] = position.to(torch.int32)
     kk, vv, pos_kv = cache["k"], cache["v"], cache["pos"]
     g = n_heads // n_kv
+    q = maybe_constrain(q, ("batch", None, "kv_heads", "heads", "head_dim"))
     if use_kernel:
         o = flash_decode(q.reshape(B, n_heads, d_head),
                          kk.permute(0, 2, 1, 3), vv.permute(0, 2, 1, 3),
@@ -225,4 +242,8 @@ def full_attention(p, x, positions, *, n_heads, n_kv, d_head, rope_theta,
                    window=None, impl="plain", use_rope=True, block=512):
     """Full-sequence self-attention (train / prefill). Returns (B,S,D)."""
     q, k, v = qkv_proj(p, x, n_heads, n_kv, d_head, positions, rope_theta, use_rope)
-    return out_proj(p, attend(q, k, v, positions, impl, window, block=block))
+    q = maybe_constrain(q, ("batch", "seq_q", "kv_heads", "heads", "head_dim"))
+    k = maybe_constrain(k, ("batch", None, "kv_heads", "head_dim"))
+    o = attend(q, k, v, positions, impl, window, block=block)
+    o = maybe_constrain(o, ("batch", "seq_q", "kv_heads", "heads", "head_dim"))
+    return out_proj(p, o)

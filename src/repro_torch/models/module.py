@@ -92,6 +92,15 @@ def param_shapes(specs, default_dtype=torch.float32):
     return walk(specs)
 
 
+def param_axes(specs):
+    """Logical-axes tree parallel to the param tree."""
+    def walk(tree):
+        if is_spec(tree):
+            return tree.axes
+        return {k: walk(v) for k, v in tree.items()}
+    return walk(specs)
+
+
 def count_params(specs) -> int:
     return int(sum(math.prod(s.shape) for _, s in tree_paths(specs)))
 

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rglru_scan import rglru_scan
+from ..launch.sharding import maybe_constrain, pad as padded
 from .module import ParamSpec
 
 C_RGLRU = 8.0
@@ -57,7 +58,7 @@ def _conv_full(p, xb):
     S = xb.shape[1]
     out = p["conv_b"].to(xb.dtype) * torch.ones_like(xb)
     for j in range(CONV_K):
-        shifted = F.pad(xb, (0, 0, j, 0))[:, :S]
+        shifted = padded(xb, (0, 0, j, 0))[:, :S]
         out = out + shifted * p["conv_w"][CONV_K - 1 - j].to(xb.dtype)
     return out
 
@@ -114,19 +115,23 @@ def rglru_with_state(p, x, n_blocks, use_kernel):
     """Full-sequence recurrent block and its decode state
     {"h": h after the last token (B,W) f32, "conv": the last CONV_K - 1 raw
     (pre-conv) inputs (B,CONV_K-1,W)}."""
-    xb = x @ p["wx"]
+    xb = maybe_constrain(x @ p["wx"], ("batch", None, "rec_width"))
     xb_conv = _conv_full(p, xb)
     a, gated = _decay_and_input(p, xb_conv, n_blocks)
     hs = rglru_scan(a, gated) if use_kernel else associative_scan(a, gated)
     y = F.gelu(x @ p["wy"], approximate="tanh")
     out = (hs.to(x.dtype) * y) @ p["wo"]
-    hist = F.pad(xb, (0, 0, CONV_K - 1, 0))[:, -(CONV_K - 1):]
+    hist = padded(xb, (0, 0, CONV_K - 1, 0))[:, -(CONV_K - 1):]
     return out, {"h": hs[:, -1], "conv": hist}
 
 
 def rglru_state_shapes(batch: int, width: int, dtype):
     return {"h": ((batch, width), torch.float32),
             "conv": ((batch, CONV_K - 1, width), dtype)}
+
+
+RGLRU_STATE_AXES = {"h": ("batch", "rec_width"),
+                    "conv": ("batch", None, "rec_width")}
 
 
 def decode_rglru(p, state, x, *, n_blocks: int):

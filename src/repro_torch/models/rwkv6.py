@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..kernels.ref import rwkv6_wkv_ref
 from ..kernels.rwkv6_kernel import rwkv6_wkv
+from ..launch.sharding import maybe_constrain, pad as padded
 from .layers import proj_heads
 from .module import ParamSpec
 
@@ -61,7 +62,7 @@ def channelmix_specs(d: int, f: int):
 
 def _shift(x):
     """The previous token along axis 1 (zero before the first)."""
-    return F.pad(x, (0, 0, 1, 0))[:, :x.shape[1]]
+    return padded(x, (0, 0, 1, 0))[:, :x.shape[1]]
 
 
 def _ddlerp(p, x, xx):
@@ -101,7 +102,7 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int = 16):
     dt = r.dtype
 
     def chunks(x):
-        return F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(B, nc, C, H, hs)
+        return padded(x, (0, 0, 0, 0, 0, pad)).reshape(B, nc, C, H, hs)
     # pad the decay with log(1) = 0: padded steps must not decay the carried
     # state (k/v pads are zero, so they contribute nothing either)
     rc, kc, vc, wc = chunks(r), chunks(k), chunks(v), chunks(w_log.float())
@@ -145,6 +146,7 @@ def wkv_seq_parallel(r, k, v, w_log, u, chunk: int = 16, n_shards: int = 16):
     def shards(x):
         return x.reshape(B, G, Sg, H, hs)
     rs, ks, vs, ws = shards(r), shards(k), shards(v), shards(w_log.float())
+    rs = maybe_constrain(rs, ("batch", "seq_q", None, "rwkv_heads", "head_dim"))
 
     def fold(x):
         return x.reshape(B * G, Sg, H, hs)
@@ -204,6 +206,7 @@ def wkv(r, k, v, w_log, u, use_kernel):
 def timemix_with_state(p, x, *, n_heads, head_size, use_kernel):
     """Full-sequence time-mix. x: (B,S,D) -> (out (B,S,D), final WKV state)."""
     r, k, v, g, w_log = _streams(p, x, _shift(x), n_heads, head_size)
+    r = maybe_constrain(r, ("batch", None, "rwkv_heads", "head_dim"))
     o, final = wkv(r, k, v, w_log, p["u"], use_kernel)
     o = _group_norm(p, o.float()).to(x.dtype) * g
     B, S, H, hs = o.shape
@@ -236,6 +239,10 @@ def rwkv_state_shapes(batch, d, n_heads, head_size, dtype):
         "cm_x": ((batch, d), dtype),           # prev token (channel-mix)
         "wkv": ((batch, n_heads, head_size, head_size), torch.float32),
     }
+
+
+RWKV_STATE_AXES = {"tm_x": ("batch", "embed"), "cm_x": ("batch", "embed"),
+                   "wkv": ("batch", "rwkv_heads", "head_dim", None)}
 
 
 def decode_timemix(p, state, x, *, n_heads, head_size):

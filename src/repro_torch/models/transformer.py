@@ -25,6 +25,7 @@ from .layers import (apply_glu_mlp, apply_norm, apply_plain_mlp, embed_lookup,
                      glu_mlp_specs, norm_specs, plain_mlp_specs)
 from .module import ParamSpec, map_specs, stack_layer_specs, tree_map
 from ..configs.base import ModelConfig, RunPolicy
+from ..launch.sharding import maybe_constrain, pad as padded, rules_active
 
 _LATER = {
     "moe": "MoE blocks: ROADMAP module queue, MoE",
@@ -175,6 +176,11 @@ def apply_block_full(bt, p, x, positions, cfg: ModelConfig, policy: RunPolicy,
     (``plain_attention``, ``associative_scan``, ``wkv_chunked``).  Both
     compute the same functions.
     """
+    x, aux, state = _block_full(bt, p, x, positions, cfg, policy, cache_len)
+    return maybe_constrain(x, ("batch", "seq_q", "act_embed")), aux, state
+
+
+def _block_full(bt, p, x, positions, cfg, policy, cache_len):
     if bt == "rec":
         return _rec_block_full(p, x, cfg, policy, cache_len)
     if bt == "rwkv":
@@ -231,8 +237,18 @@ def _rwkv_block_full(p, x, cfg, policy, cache_len):
 
 def _cache_from_kv(k, v, positions, cache_len, cfg):
     B, S = k.shape[:2]
+    # in the measurement's traces (sharding rules on) the cache is built
+    # without writes into a fresh tensor, as the JAX package builds it
+    functional = rules_active()
     if cfg.window is not None and cache_len < S:
         kk, vv, pos = k[:, -cache_len:], v[:, -cache_len:], positions[:, -cache_len:]
+        if functional:
+            # prefill positions are 0..S-1, so slot (S - L + j) % L of the
+            # last L tokens is (j + S % L) % L: a roll by S % L
+            r = S % cache_len
+            roll = (lambda t: t) if r == 0 else \
+                (lambda t: torch.cat([t[:, cache_len - r:], t[:, :cache_len - r]], 1))
+            return {"k": roll(kk), "v": roll(vv), "pos": roll(pos.to(torch.int32))}
         slot = (pos % cache_len).long()
         bidx = torch.arange(B, device=k.device)[:, None]
         ck = torch.zeros((B, cache_len) + k.shape[2:], dtype=k.dtype, device=k.device)
@@ -245,6 +261,9 @@ def _cache_from_kv(k, v, positions, cache_len, cfg):
     pad = cache_len - S
     if pad < 0:
         raise ValueError("cache_len < seq_len for linear cache")
+    if functional:
+        return {"k": padded(k, (0, 0, 0, 0, 0, pad)), "v": padded(v, (0, 0, 0, 0, 0, pad)),
+                "pos": padded(positions.to(torch.int32), (0, pad), value=-1)}
     ck = torch.zeros((B, cache_len) + k.shape[2:], dtype=k.dtype, device=k.device)
     cv = torch.zeros_like(ck)
     cp = torch.full((B, cache_len), -1, dtype=torch.int32, device=k.device)
@@ -300,6 +319,23 @@ def block_state_shapes(cfg: ModelConfig, bt: str, batch: int, cache_len: int, dt
     return attn.cache_shapes(batch, clen, cfg.n_kv_heads, cfg.d_head, dtype)
 
 
+def block_state_axes(bt: str):
+    return {"attn": attn.CACHE_AXES, "rec": rg.RGLRU_STATE_AXES,
+            "rwkv": rwkv.RWKV_STATE_AXES}[bt]
+
+
+def model_state_axes(cfg: ModelConfig):
+    """Logical axes of the decode state, parallel to ``model_state_shapes``."""
+    n_units, tail = n_units_tail(cfg)
+    out = {"units": {f"b{i}": {k: ("layers",) + tuple(a)
+                               for k, a in block_state_axes(bt).items()}
+                     for i, bt in enumerate(cfg.block_pattern)}}
+    if tail:
+        out["tail"] = {f"t{i}": dict(block_state_axes(cfg.block_pattern[i]))
+                       for i in range(tail)}
+    return out
+
+
 def model_state_shapes(cfg: ModelConfig, batch: int, cache_len: int, dtype):
     """Tree of (shape, dtype) leaves; unit leaves carry a leading n_units dim."""
     _check_supported(cfg)
@@ -327,6 +363,29 @@ _SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
                                [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
 
 
+_RECOMPUTE_DEPTH = [0]
+
+
+def recomputing() -> bool:
+    """Whether a checkpointed unit is being recomputed in backward now (the
+    measurement counts the products run then as remat FLOPs)."""
+    return _RECOMPUTE_DEPTH[0] > 0
+
+
+def _marked(fn):
+    """``fn``, which marks the calls that autograd makes in backward (the
+    recompute) for ``recomputing``."""
+    def run(*args):
+        if torch._C._current_graph_task_id() == -1:
+            return fn(*args)
+        _RECOMPUTE_DEPTH[0] += 1
+        try:
+            return fn(*args)
+        finally:
+            _RECOMPUTE_DEPTH[0] -= 1
+    return run
+
+
 def _remat_wrap(fn, policy: RunPolicy):
     """Rematerialise ``fn`` in backward, the counterpart of the JAX package's
     ``_remat_wrap``.  ``none`` keeps every activation; ``full`` recomputes
@@ -339,11 +398,12 @@ def _remat_wrap(fn, policy: RunPolicy):
     if policy.remat not in ("dots", "full"):
         raise ValueError(f"remat {policy.remat!r} not in none | dots | full")
     kw = {"context_fn": _SAVE_DOTS} if policy.remat == "dots" else {}
+    marked = _marked(fn)
 
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return checkpoint(marked, *args, use_reentrant=False, **kw)
     return wrapped
 
 
@@ -358,6 +418,7 @@ def forward(params, batch, cfg: ModelConfig, policy: RunPolicy,
     cd = compute_dtype(policy)
     cparams = cast_params(params, cd)
     x, positions = embed_tokens(cparams, cfg, batch, cd)
+    x = maybe_constrain(x, ("batch", "seq_q", "act_embed"))
     pattern = cfg.block_pattern
     n_units, tail = n_units_tail(cfg)
     cl = cache_len if return_cache else None
@@ -431,7 +492,16 @@ def lm_loss(logits, labels):
     V = logits.shape[-1]
     mask = labels >= 0
     labels_c = labels.clamp(0, V - 1).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels_c[..., None])[..., 0]
+    if rules_active():
+        # the measurement's traces: reductions over the vocab dim and a
+        # one-hot pick, which keep a vocab-sharded DTensor sharded (its
+        # log_softmax and gather would first replicate the whole vocab)
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+        picked = (logits * torch.nn.functional.one_hot(labels_c, V).to(logits.dtype)).sum(-1)
+        ll = picked - lse
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels_c[..., None])[..., 0]
     n = torch.clamp(mask.sum(), min=1)
     return -(ll * mask).sum() / n

@@ -6,8 +6,8 @@ state layout (``{"mom": ..., "step": int32}``), bias correction, decoupled
 weight decay, global-norm clipping and schedule (linear warmup, cosine
 decay), all in f32.  ``torch.optim`` is not used: its bias correction, decay
 and clipping differ.  The functions are pure: they return new trees and
-leave their inputs as they are.  ``opt_state_axes`` (sharding) waits for the
-sharding slice (ROADMAP module queue 2).
+leave their inputs as they are.  ``opt_state_axes`` gives the state's logical
+axes, which the measurement's sharding rules resolve.
 """
 from __future__ import annotations
 
@@ -78,6 +78,19 @@ def init_opt_state(opt: OptConfig, params):
         raise ValueError(opt.name)
     device = _leaves(params)[0].device
     return {"mom": mom, "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def opt_state_axes(opt: OptConfig, axes_tree):
+    """Logical axes for the optimizer state, parallel to init_opt_state."""
+    def each(fn):
+        return tree_map(fn, axes_tree) if isinstance(axes_tree, dict) else fn(axes_tree)
+    if opt.name in ("adamw", "sgdm"):
+        mom_axes = {k: each(lambda a: a) for k in (("m", "v") if opt.name == "adamw"
+                                                    else ("m",))}
+    else:
+        mom_axes = {"vr": each(lambda a: a[:-1] if len(a) >= 2 else a),
+                    "vc": each(lambda a: a[:-2] + a[-1:] if len(a) >= 2 else ())}
+    return {"mom": mom_axes, "step": ()}
 
 
 def global_norm(tree):

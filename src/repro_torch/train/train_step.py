@@ -3,7 +3,7 @@
 The train step composes microbatch gradient accumulation (a Python loop),
 mixed precision (f32 params, bf16 compute), the remat policy (inside the
 model), gradient clipping and the optimizer update.  Compressed cross-pod
-gradient reduction needs a pod mesh and waits for the sharding slice.
+gradient reduction (``grad_compress``) waits for ROADMAP module queue 1.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from .optimizer import OptConfig, init_opt_state, opt_update
 
 MOE_AUX_COEF = 0.01
 _GRAD_COMPRESS = ("grad_compress: compressed cross-pod gradient reduction "
-                  "(train/compression.py) needs a pod mesh; ROADMAP module queue 7")
+                  "(train/compression.py) is not ported yet; ROADMAP module queue 1")
 
 
 def make_loss_fn(cfg: ModelConfig, policy: RunPolicy):
@@ -68,12 +68,13 @@ def compute_grads(cfg, policy, params, batch):
 
 
 def make_train_step(cfg: ModelConfig, policy: RunPolicy, opt: OptConfig, mesh=None):
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics)."""
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    On a mesh the arguments are DTensors and DTensor owns every reduction
+    (the SPMD partitioner does in the JAX package), so ``mesh`` changes
+    nothing here."""
     if policy.grad_compress != "none":
         raise NotImplementedError(_GRAD_COMPRESS)
-    if mesh is not None:
-        raise NotImplementedError("mesh: the port runs on one device; sharding is "
-                                  "ROADMAP module queue 2")
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = compute_grads(cfg, policy, params, batch)

@@ -34,5 +34,7 @@ def test_run_policy_and_shapes_match_reference():
         dataclasses.asdict(ref_base.RunPolicy())
     assert {k: dataclasses.asdict(v) for k, v in port_base.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in ref_base.SHAPES.items()}
-    with pytest.raises(NotImplementedError, match="sharding: later slice"):
-        port_base.RunPolicy().rules_dict()
+    # the sharding rules of every preset, with overrides, are the reference's
+    for preset in ("fsdp", "tp", "ep", "dp"):
+        kw = dict(sharding_preset=preset, rule_overrides=(("seq_q", ()), ("vocab", ())))
+        assert port_base.RunPolicy(**kw).rules_dict() == ref_base.RunPolicy(**kw).rules_dict()

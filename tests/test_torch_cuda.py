@@ -6,6 +6,9 @@ they run on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+The attention kernels take head dims 32, 64, 128 (and 256 for the forward);
+each kernel op's fake implementation must give its real outputs' layout.
+
 Tolerances: f32 2e-5 with TF32 off, bf16 2e-2; for the backward kernels
 f32 5e-5 (the reference's grad bound) and bf16 2e-2, each of the call's
 scale max(1, max|plain grad|): the bf16 kernels round P and dS to bf16 for
@@ -63,7 +66,7 @@ ATTN_SHAPES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("B,H,KVH,Sq,Skv,window,shift", ATTN_SHAPES)
 @pytest.mark.parametrize("seq_major", [False, True])
 def test_cuda_flash_attention_matches_plain(dt, D, B, H, KVH, Sq, Skv, window, shift,
@@ -183,7 +186,7 @@ BWD_SHAPES = ATTN_SHAPES + [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("B,H,KVH,Sq,Skv,window,shift", BWD_SHAPES)
 @pytest.mark.parametrize("seq_major", [False, True])
 def test_cuda_flash_attention_bwd_matches_plain(dt, D, B, H, KVH, Sq, Skv, window, shift,
@@ -237,7 +240,7 @@ def test_cuda_flash_attention_function_grads(dt):
 def test_cuda_bwd_wrappers_reject_what_the_kernels_do_not_take():
     dev = _cuda()
     lse = torch.zeros(1, 4, 16, device=dev)
-    for D in (96, 256):              # the backward kernels take D = 64 and 128
+    for D in (96, 256):              # the backward kernels take D = 32, 64 and 128
         q = torch.zeros(1, 4, 16, D, device=dev, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention_bwd(q, q[:, :2], q[:, :2], q, lse, q)
@@ -281,6 +284,63 @@ def test_cuda_flash_attention_bwd_dq_is_deterministic():
     second = flash_attention_bwd_dq(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_is_deterministic_at_head_dim_32():
+    """dq and dk/dv at head dim 32 (a 64-column tile whose columns past 32
+    the loads fill with zeros), at the bench train cell's per-call shapes:
+    two calls give the same bits."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, H, KVH, S, D = 32, 12, 2, 256, 32
+    q, do = (torch.randn(B, H, S, D, generator=g, device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, KVH, S, D, generator=g, device=dev).bfloat16() for _ in range(2))
+    o, lse = ref.flash_attention_ref(q, k, v)
+    dq = [flash_attention_bwd_dq(q, k, v, o, lse, do) for _ in range(2)]
+    dkv = [flash_attention_bwd_dkv(q, k, v, lse, dq[0][1], do) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*dq))
+    assert all(torch.equal(a, b) for a, b in zip(*dkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_cuda_fake_implementations_match_the_kernels_outputs(D):
+    """Each kernel op's fake implementation (what the measurement traces)
+    gives the shapes, strides, dtypes and devices of the kernel's own
+    outputs, and a fake call launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ops
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(9)
+    r = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=g, device=dev).to(dt)
+    q, k, v = r(2, 12, 100, D), r(2, 2, 100, D), r(2, 2, 100, D)
+    o, lse = flash_attention_fwd(q, k, v)
+    calls = {
+        "fwd": (flash_attention_fwd, (q, k, v)),
+        "dq": (flash_attention_bwd_dq, (q, k, v, o, lse, q)),
+        "dkv": (flash_attention_bwd_dkv, (q, k, v, lse, lse, q)),
+        "decode": (flash_decode, (r(2, 12, D), k, v,
+                                  torch.arange(100, device=dev, dtype=torch.int32).expand(2, 100)
+                                  .contiguous(), torch.full((2,), 99, device=dev,
+                                                            dtype=torch.int32))),
+        "rglru": (rglru_scan, (r(2, 70, 48, dt=torch.float32), r(2, 70, 48, dt=torch.float32))),
+        "wkv": (rwkv6_wkv, (r(2, 4, 70, 32), r(2, 4, 70, 32), r(2, 4, 70, 32),
+                            -torch.rand(2, 4, 70, 32, generator=g, device=dev), r(4, 32))),
+    }
+    for name, (fn, args) in calls.items():
+        real = fn(*args)
+        real = real if isinstance(real, tuple) else (real,)
+        before = ops.launch_counts()
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            fake_args = [mode.from_tensor(a) for a in args]
+            fake = fn(*fake_args)
+        assert ops.launch_counts() == before, name
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        for a, b in zip(real, fake):
+            assert (a.shape, a.stride(), a.dtype, a.device) == \
+                (b.shape, b.stride(), b.dtype, b.device), name
 
 
 @pytest.mark.cuda

@@ -20,8 +20,15 @@ bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 print(len(names), "modules;", "repro loaded:", bad)
 assert not bad, bad
 for n in ("repro_torch.train.optimizer", "repro_torch.train.train_step",
-          "repro_torch.data.pipeline", "repro_torch.launch.train"):
+          "repro_torch.data.pipeline", "repro_torch.launch.train",
+          "repro_torch.hw", "repro_torch.launch.sharding", "repro_torch.launch.mesh",
+          "repro_torch.launch.steps", "repro_torch.launch.traceanalysis",
+          "repro_torch.core.benchscale", "repro_torch.core.analytic",
+          "repro_torch.core.counters", "repro_torch.core.searchspace",
+          "repro_torch.core.anomaly", "repro_torch.kernels.traceable"):
     assert n in names, n
+import torch.distributed as dist
+assert not dist.is_initialized()     # importing starts no process group
 assert sys.modules["jax"] is None
 """
 

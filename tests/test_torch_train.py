@@ -307,7 +307,10 @@ def test_train_step_options_that_need_a_mesh_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pts.make_train_step(cfg, RunPolicy(grad_compress="int8"), popt.OptConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pts.make_train_step(cfg, RunPolicy(), popt.OptConfig(), mesh=object())
+        pts.make_train_step(cfg, RunPolicy(grad_compress="bf16"), popt.OptConfig(),
+                            mesh=object())
+    # a mesh alone is taken: the arguments' DTensor placements carry the sharding
+    assert callable(pts.make_train_step(cfg, RunPolicy(), popt.OptConfig(), mesh=object()))
     with pytest.raises(ValueError, match="divisible"):
         pts._split_microbatches({"tokens": torch.zeros(3, 4)}, 2)
 
