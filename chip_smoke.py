@@ -33,8 +33,11 @@ Phases (any failure exits non-zero and prints no result line):
               against their plain versions at the bench train cell's shapes
               (q (32,12,256,32), k/v (32,2,256,32), causal), with a window,
               a causal shift and G = 1, 6; two runs of dq and of dk/dv must
-              give the same bits; a line each of ms, bound, SDPA's time,
-              registers and spills, and the card's name and power limit.
+              give the same bits; flash-decode (bf16, f32) at the bench
+              decode_s step's per-call shape (16 lanes, a 1024-slot cache
+              holding 513 tokens) within TOL; a line each of ms, bound,
+              SDPA's time, registers and spills, and the card's name and
+              power limit.
 3c. bench_step — qwen2-1.5b-bench (the search's own config) on one card:
               one train_s step's gradients (remat "dots") and one decode_s
               step, kernels on against off from the same params, f32 and
@@ -46,10 +49,14 @@ Phases (any failure exits non-zero and prints no result line):
               fake process group stays out of the card phases; its failure
               fails the run): the committed corpus's 4 non-MoE witnesses
               and 6 controls measured by ``measure_cell`` (V5E spec, fake
-              cuda tensors), each verdict as the reference's replay holds
-              it; the same points kernels on (no launch, no pointer read;
-              counter deltas printed); qwen2-1.5b at train_4k on the 16x16
-              production mesh (counters and trace seconds printed).
+              cuda tensors), each point's kinds exactly the reference's
+              (``parity.REFERENCE``) or a listed difference, its useful-FLOP
+              ratio within 10 % of the reference's, and no op run
+              replicated but the listed ones; the same points kernels on
+              (no launch, no pointer read; counter deltas printed);
+              qwen2-1.5b at train_4k on the 16x16 production mesh (useful
+              ratio within 10 % of the CPU trace's, no unlisted replicated
+              op; counters and trace seconds printed).
 4. serve    — qwen2-1.5b at full published width, random weights from a
               seeded generator, ServingEngine(n_slots=4, cache_len=4096,
               temperature=0) over 8 requests; launch counts must equal
@@ -90,6 +97,10 @@ Phases (any failure exits non-zero and prints no result line):
 8. report   — each phase's seconds, one JSON line of kernels (the head-dim-32
               rows under ``d32``), the nvidia-smi line, and the result line
               ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --step-times [SRC]`` times qwen2-1.5b's serving and
+train steps with ``repro_torch`` imported from SRC (``step_times_main``), so
+that two trees can be timed in turn on one card.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1545,6 +1556,7 @@ def recurrent(dev, arch, cache_len, max_prompt):
 # the bench train cell's per-call attention shapes (qwen2-1.5b-bench at
 # train_s): B, H, KVH, S, D
 D32_SHAPE = (32, 12, 2, 256, 32)
+D32_DECODE_SHAPE = (16, 1024)     # bench decode_s: lanes, cache slots
 # the bench step, kernels on vs the plain versions from the same params and
 # batch: the loss relative to its value; f32 gradients leaf by leaf relative
 # to the leaf's largest plain gradient; bf16 gradients against the f32 ones,
@@ -1599,6 +1611,21 @@ def check_attention_d32(gen, dev, timer, context):
             worst["dq"] = max(worst["dq"], errs["dq"][0])
             worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
         del q, k, v, do, o, lse, ro, rlse, got, want
+    # flash-decode at the bench decode_s step's per-call shape: 16 lanes, a
+    # 1024-slot cache holding a 512-token prefill, the new token at 512
+    from repro_torch.kernels.decode_attention import flash_decode
+    dB, dT = D32_DECODE_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, pos, qpos = decode_inputs(gen, dev, dtype, dB, H, KVH, dT, D,
+                                           (513,) * dB, None)
+        err = (flash_decode(q, k, v, pos, qpos).float()
+               - ref.flash_decode_ref(q, k, v, pos, qpos).float()).abs().max().item()
+        ok = err <= TOL[dtype]
+        print(f"d32 flash_decode {str(dtype)[6:]} B={dB} H={H} KVH={KVH} T={dT} D={D} "
+              f"fills=513 x {dB}: max|o|err={err:.3e} tol={TOL[dtype]:g} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("flash_decode at the bench decode_s shape disagrees with its plain version")
 
     q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, H, KVH, S, S, D)
     do = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -1770,11 +1797,13 @@ def measure_main():
     """``chip_smoke.py --measure``, the measure phase's own process (its fake
     process group stays out of the card phases): the corpus's witnesses and
     controls that need no MoE, measured by ``measure_cell`` (V5E spec,
-    kernels off) on fake cuda tensors, each verdict held as the reference's
-    corpus replay holds it; the same points kernels on (nothing may launch
-    and no pointer may be read; the counter deltas are printed, not gated);
-    then qwen2-1.5b at train_4k on the 16x16 production mesh.  The last line
-    is a JSON summary."""
+    kernels off) on fake cuda tensors, each held to the reference's kinds
+    and useful-FLOP ratio that ``core/parity.py`` keeps (or a listed
+    difference), with no op run replicated but the listed ones; the same
+    points kernels on (nothing may launch and no pointer may be read; the
+    counter deltas are printed, not gated); then qwen2-1.5b at train_4k on
+    the 16x16 production mesh, held to the CPU trace's useful-FLOP ratio.
+    The last line is a JSON summary."""
     import dataclasses
     import warnings
     if not torch.cuda.is_available():
@@ -1802,13 +1831,23 @@ def measure_main():
         c = m.counters()
         kinds = sorted(anomaly.kinds(c, policy.remat))
         key = parity.point_key(p)
-        ok = parity.verdict_ok(kind, role, kinds) != (key in parity.VERDICT_DIFFERENCES)
+        want_kinds = list(parity.expected_kinds(p, role))
+        ref_useful = parity.REFERENCE[parity.corpus_key(p, role)][1]
+        useful = c["perf.useful_flops_ratio"]
         print(f"measure {kind} {role} {key} cache_shard={p['cache_shard']} "
-              f"vocab_shard={p['vocab_shard']}: kinds {kinds}, trace {m.compile_s:.2f} s; "
+              f"vocab_shard={p['vocab_shard']}: kinds {kinds} (expected {want_kinds}), "
+              f"useful {useful:.4f} (reference {ref_useful:.4f}), trace {m.compile_s:.2f} s; "
               f"counters {json.dumps(c)}; ops DTensor ran replicated "
               f"{json.dumps(m.hlo['replicated_ops'])}", flush=True)
-        if not ok:
-            fail(f"measure: the {role} {key} of {sig} gives kinds {kinds}")
+        if kinds != want_kinds or not parity.verdict_ok(kind, role, kinds):
+            fail(f"measure: the {role} {key} of {sig} gives kinds {kinds}, "
+                 f"expected {want_kinds}")
+        if not parity.useful_ok(key, useful, ref_useful):
+            fail(f"measure: the {role} {key} has useful-FLOP ratio {useful:.4f}, not "
+                 f"within {parity.USEFUL_RATIO_REL_BOUND:.0%} of {ref_useful:.4f}")
+        unlisted = set(m.hlo["replicated_ops"]) - set(parity.REPLICATED_OPS)
+        if unlisted:
+            fail(f"measure: the {role} {key} ran unlisted ops replicated: {sorted(unlisted)}")
         row = {"kind": kind, "role": role, "point": key, "kinds": kinds,
                "trace_s": m.compile_s, "counters": c}
         on = dataclasses.replace(policy, use_pallas=True)
@@ -1843,6 +1882,13 @@ def measure_main():
           f"{m.compile_s:.2f} s ({time.perf_counter() - t0:.2f} s with the build); kinds "
           f"{sorted(anomaly.kinds(c, 'dots'))}; counters {json.dumps(c)}; ops DTensor ran "
           f"replicated {json.dumps(m.hlo['replicated_ops'])}", flush=True)
+    useful, want = c["perf.useful_flops_ratio"], parity.FULL_WIDTH_USEFUL
+    if abs(useful - want) > parity.USEFUL_RATIO_REL_BOUND * want:
+        fail(f"measure: the full-width point has useful-FLOP ratio {useful:.4f}, not "
+             f"within {parity.USEFUL_RATIO_REL_BOUND:.0%} of the CPU trace's {want:.4f}")
+    unlisted = set(m.hlo["replicated_ops"]) - set(parity.REPLICATED_OPS)
+    if unlisted:
+        fail(f"measure: the full-width point ran unlisted ops replicated: {sorted(unlisted)}")
     summary["full_width"] = {"trace_s": m.compile_s, "counters": c}
     summary["seconds"] = time.perf_counter() - t_all
     print(json.dumps({"measure": summary}), flush=True)
@@ -2035,8 +2081,90 @@ def main():
           flush=True)
 
 
+def step_times_main(src):
+    """``chip_smoke.py --step-times [SRC]``: the wall time of qwen2-1.5b's
+    serving steps and train step, kernels on, with ``repro_torch`` imported
+    from SRC (default: this checkout's ``src``), so that two trees can be
+    timed in turn on one card.  Serving as the serve phase runs it (4 lanes,
+    a 4096-slot cache, 8 requests of 32 tokens): prefill ms per request and
+    decode ms per step; training as the train phase (seq 4096, batch 2 in 2
+    microbatches, remat "dots", bf16): the median of 5 steps after one
+    warm-up.  The last line is a JSON summary."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: step times are taken on the card")
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.configs.base import SHAPES, RunPolicy, ShapeSpec, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.train import train_step as pts
+
+    dev = torch.device("cuda", 0)
+    build.build()
+    cfg = get_config("qwen2-1.5b")
+    params = api.init(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(64, 3001, size=8)]
+    prefill_ms, decode_ms = [], []
+
+    def timed(fn, sink):
+        def wrapped(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapped
+
+    for rnd in range(2):                       # the first round warms up
+        eng = ServingEngine(cfg, RunPolicy(use_pallas=True), params, n_slots=4,
+                            cache_len=4096, temperature=0.0, device=dev)
+        prefill_ms.clear()
+        decode_ms.clear()
+        eng.prefill = timed(eng.prefill, prefill_ms)
+        eng.decode = timed(eng.decode, decode_ms)
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(rid=i, prompt=p, max_new_tokens=32))
+        ops.reset_launch_counts()
+        list(eng.run())
+        del eng
+    serve_launches = ops.launch_counts()
+    del params
+    policy = RunPolicy(use_pallas=True, remat="dots", n_microbatch=2)
+    opt = opt_config("adamw", lr=1e-3, steps=6)
+    shape = ShapeSpec("train_4k, batch 2", "train", SHAPES["train_4k"].seq_len, 2)
+    state = {"params": api.init(cfg, seed=0, device=dev)}
+    state["opt"] = pts.make_init_opt(cfg, policy, opt)(state["params"])
+    step_fn = pts.make_train_step(cfg, policy, opt)
+    data = SyntheticLM(cfg, shape, seed=0)
+    step_ms = []
+    for i in range(6):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state["params"], state["opt"], m = step_fn(state["params"], state["opt"], b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    out = {"src": str(src), "prefill_ms_mean": float(np.mean(prefill_ms)),
+           "decode_ms_median": float(np.median(decode_ms)),
+           "decode_ms_p90": float(np.percentile(decode_ms, 90)),
+           "decode_steps": len(decode_ms), "train_step_ms_median": float(np.median(step_ms[1:])),
+           "train_step_ms": step_ms[1:], "serve_launches": serve_launches,
+           "loss": float(m["loss"].item()),
+           "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                   "--format=csv,noheader"], capture_output=True,
+                                  text=True).stdout.strip()}
+    print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--measure"]:
         measure_main()
+    elif sys.argv[1:2] == ["--step-times"]:
+        step_times_main(sys.argv[2] if len(sys.argv) > 2 else ROOT / "src")
     else:
         main()

@@ -22,7 +22,7 @@ import torch
 
 from . import build
 from .ref import flash_decode_ref
-from .traceable import R, S, flops, mesh_divides, shardings
+from .traceable import R, S, call, flops, mesh_divides, shardings
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -110,11 +110,10 @@ def flash_decode(q, k, v, pos, qpos, *, window=None):
     kernel (and counts the launch in ``flash_decode.launches``) or raises;
     a fake tensor gets the output's shape.
     """
-    return _decode_op(q, k, v, pos, qpos, window)
+    return call(_decode_op, _decode, q, k, v, pos, qpos, window)
 
 
-@torch.library.custom_op("repro_torch::flash_decode", mutates_args=())
-def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
                qpos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, pos, qpos, window=window)
@@ -164,6 +163,9 @@ def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Ten
         raise RuntimeError(f"flash_decode: kernel launch failed (error {err})")
     _COUNTED.launches += 1
     return o
+
+
+_decode_op = torch.library.custom_op("repro_torch::flash_decode", _decode, mutates_args=())
 
 
 @_decode_op.register_fake

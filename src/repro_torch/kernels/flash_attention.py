@@ -14,7 +14,7 @@ Each kernel is a ``torch.library.custom_op`` (``repro_torch::...``) with a
 fake implementation, a FLOP formula and a DTensor sharding rule
 (``traceable.py``), so the measurement layer traces it on fake tensors and
 DTensors; the wrappers below check what only the caller can (autograd) and
-call the ops.
+call the ops, or, on plain tensors, the ops' implementations directly.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import torch
 from . import build
 from .ref import (flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
                   flash_attention_ref)
-from .traceable import R, S, flops, mesh_divides, shardings, visible_pairs
+from .traceable import R, S, call, flops, mesh_divides, shardings, visible_pairs
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FWD_HEAD_DIMS = (32, 64, 128, 256)
@@ -116,7 +116,7 @@ def flash_attention_fwd(q, k, v, *, window=None, causal_shift=0):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention_fwd: the inputs require grad but the "
                            "kernel's output would carry none; call flash_attention")
-    return tuple(_fwd_op(q, k, v, window, int(causal_shift)))
+    return tuple(call(_fwd_op, _fwd, q, k, v, window, int(causal_shift)))
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, *, window=None, causal_shift=0):
@@ -126,7 +126,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, window=None, causal_shift=0):
     CPU tensors go to the plain version; CUDA tensors launch the kernel
     (counted in ``flash_attention_bwd_dq.launches``) or raise.
     """
-    return tuple(_dq_op(q, k, v, o, lse, do, window, int(causal_shift)))
+    return tuple(call(_dq_op, _dq, q, k, v, o, lse, do, window, int(causal_shift)))
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, window=None, causal_shift=0):
@@ -138,7 +138,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, window=None, causal_shif
     its reduction pass, one call counted once in
     ``flash_attention_bwd_dkv.launches``, or raise.
     """
-    return tuple(_dkv_op(q, k, v, lse, delta, do, window, int(causal_shift)))
+    return tuple(call(_dkv_op, _dkv, q, k, v, lse, delta, do, window, int(causal_shift)))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, window=None, causal_shift=0):
@@ -155,8 +155,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window=None, causal_shift=0):
 
 # ------------------------------------------------------------ the custom ops
 
-@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
-def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
             causal_shift: int) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window, causal_shift=causal_shift)
@@ -174,6 +173,9 @@ def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[
     return o, lse
 
 
+_fwd_op = torch.library.custom_op("repro_torch::flash_attention_fwd", _fwd, mutates_args=())
+
+
 @_fwd_op.register_fake
 def _(q, k, v, window, causal_shift):
     B, H, Sq, D = q.shape
@@ -181,8 +183,7 @@ def _(q, k, v, window, causal_shift):
             q.new_empty((B, H, Sq), dtype=torch.float32))
 
 
-@torch.library.custom_op("repro_torch::flash_attention_bwd_dq", mutates_args=())
-def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+def _dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
            lse: torch.Tensor, do: torch.Tensor, window: Optional[int],
            causal_shift: int) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
@@ -204,6 +205,9 @@ def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     return dq, delta
 
 
+_dq_op = torch.library.custom_op("repro_torch::flash_attention_bwd_dq", _dq, mutates_args=())
+
+
 @_dq_op.register_fake
 def _(q, k, v, o, lse, do, window, causal_shift):
     B, H, Sq, D = q.shape
@@ -211,8 +215,7 @@ def _(q, k, v, o, lse, do, window, causal_shift):
             q.new_empty((B, H, Sq), dtype=torch.float32))
 
 
-@torch.library.custom_op("repro_torch::flash_attention_bwd_dkv", mutates_args=())
-def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+def _dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
             delta: torch.Tensor, do: torch.Tensor, window: Optional[int],
             causal_shift: int) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
@@ -237,6 +240,10 @@ def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor
          _DTYPES[q.dtype], q.device)
     _COUNTS["dkv"].launches += 1
     return dk, dv
+
+
+_dkv_op = torch.library.custom_op("repro_torch::flash_attention_bwd_dkv", _dkv,
+                                  mutates_args=())
 
 
 @_dkv_op.register_fake

@@ -20,7 +20,7 @@ import torch
 
 from . import build
 from .ref import rglru_scan_ref
-from .traceable import R, S, flops, shardings
+from .traceable import R, S, call, flops, shardings
 
 CHANNELS = 16     # channels per block (CW in the source)
 STEPS = 64        # steps per ring stage
@@ -47,11 +47,10 @@ def rglru_scan(a, b):
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise RuntimeError("rglru_scan: the inputs require grad but the kernel has "
                            "no backward (nor has the TPU kernel it replaces)")
-    return _scan_op(a, b)
+    return call(_scan_op, _scan, a, b)
 
 
-@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
-def _scan_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":
@@ -74,6 +73,9 @@ def _scan_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"rglru_scan: kernel launch failed (error {err})")
     _COUNTED.launches += 1
     return h
+
+
+_scan_op = torch.library.custom_op("repro_torch::rglru_scan", _scan, mutates_args=())
 
 
 @_scan_op.register_fake

@@ -19,7 +19,7 @@ import torch
 
 from . import build
 from .ref import rwkv6_wkv_ref
-from .traceable import R, S, flops, shardings
+from .traceable import R, S, call, flops, shardings
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (32, 64)
@@ -48,11 +48,10 @@ def rwkv6_wkv(r, k, v, w_log, u):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w_log, u)):
         raise RuntimeError("rwkv6_wkv: the inputs require grad but the kernel has "
                            "no backward (nor has the TPU kernel it replaces)")
-    return tuple(_wkv_op(r, k, v, w_log, u))
+    return tuple(call(_wkv_op, _wkv, r, k, v, w_log, u))
 
 
-@torch.library.custom_op("repro_torch::rwkv6_wkv", mutates_args=())
-def _wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w_log: torch.Tensor,
+def _wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w_log: torch.Tensor,
             u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if r.device.type == "cpu":
         return rwkv6_wkv_ref(r, k, v, w_log, u)
@@ -98,6 +97,9 @@ def _wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w_log: torch.Tens
         raise RuntimeError(f"rwkv6_wkv: kernel launch failed (error {err})")
     _COUNTED.launches += 1
     return o, state
+
+
+_wkv_op = torch.library.custom_op("repro_torch::rwkv6_wkv", _wkv, mutates_args=())
 
 
 @_wkv_op.register_fake

@@ -3,6 +3,9 @@
 strides, no pointer read, nothing launched), a FLOP formula
 (``torch.utils.flop_counter``) and a DTensor sharding rule.
 
+An eager call on plain tensors calls the implementation directly (``call``),
+so serving and training do not pay the op dispatcher on every launch.
+
 A sharding rule lists, for one mesh dim, the placements the op accepts
 (output placements, then one per argument, None for a non-tensor); DTensor
 expands them to the whole mesh and redistributes any input that fits none.
@@ -10,6 +13,7 @@ expands them to the whole mesh and redistributes any input that fits none.
 from __future__ import annotations
 
 import numpy as np
+import torch
 from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
@@ -23,6 +27,16 @@ def visible_pairs(Sq, Skv, window, causal_shift) -> int:
     hi = np.minimum(qa, Skv - 1)
     lo = np.zeros_like(qa) if window is None else np.maximum(qa - int(window) + 1, 0)
     return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def call(op, impl, *args):
+    """``impl(*args)`` where every tensor argument is a plain tensor (an
+    eager call, on the card or the CPU: the op dispatcher's per-call cost is
+    skipped); the custom op ``op`` otherwise (fake tensors and DTensors, the
+    measurement's traces)."""
+    if all(type(a) is torch.Tensor for a in args if isinstance(a, torch.Tensor)):
+        return impl(*args)
+    return op(*args)
 
 
 def flops(op):

@@ -225,38 +225,6 @@ def use_rules(mesh, rules: Mapping, log: list | None = None):
         _CTX.mesh, _CTX.rules, _CTX.log = prev
 
 
-def pad(x, pads, value=0.0):
-    """``torch.nn.functional.pad(x, pads, value=value)`` (constant mode).
-    Inside ``use_rules``, a DTensor is padded by concatenating filled slices
-    (DTensor's own pad has no working strategy in every torch release)."""
-    from torch.nn.functional import pad as _pad
-    if _CTX.mesh is None:
-        return _pad(x, pads, value=value)
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        return _pad(x, pads, value=value)
-    import torch
-    for i in range(len(pads) // 2):
-        dim = x.dim() - 1 - i
-        before, after = pads[2 * i], pads[2 * i + 1]
-        if before == 0 and after == 0:
-            continue
-        edge = x.narrow(dim, 0, 1)
-
-        def fill(n):
-            shape = list(edge.shape)
-            shape[dim] = n
-            return torch.full_like(edge, value).expand(shape)
-        parts = ([fill(before)] if before else []) + [x] + ([fill(after)] if after else [])
-        x = torch.cat(parts, dim)
-    return x
-
-
-def rules_active() -> bool:
-    """Whether ``use_rules`` is active (the measurement's traces)."""
-    return _CTX.mesh is not None
-
-
 def maybe_constrain(x, axes):
     """Annotate an activation with logical axes (no-op outside use_rules).
 

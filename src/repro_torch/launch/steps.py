@@ -7,7 +7,8 @@ arguments.  ``Cell.trace`` runs the step once on DTensors of fake tensors on
 the mesh's ranks (the per-device program, which the "compile" phase of the
 measurement reads); ``Cell.lower`` runs it once on global fake tensors with
 no mesh (the counterpart of the JAX package's lowered, un-partitioned
-module), kept as an op log.  PyTorch runs eagerly, so ``scan_layers`` has no
+module), kept as an op log.  Both run in the forms XLA partitions
+(``xlaforms.XlaForms``).  PyTorch runs eagerly, so ``scan_layers`` has no
 structural meaning here: both values give the same trace.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..models import transformer as tfm
 from ..train.optimizer import OptConfig, opt_state_axes
 from ..train.train_step import (make_decode_step, make_init_opt, make_prefill_step,
                                 make_train_step)
-from . import traceanalysis
+from . import traceanalysis, xlaforms
 from .sharding import FallbackStats, placements_for, spec_for, tree_specs, use_rules
 
 
@@ -135,9 +136,10 @@ class Cell:
                       for i in self.donate_argnums for t in flat[i])
         rec = traceanalysis.Recorder(fake, tfm.recomputing)
         log: list = []
-        ctx = []
+        ctx = [xlaforms.XlaForms()]
         if sharded:
             from torch.distributed.tensor.experimental import implicit_replication
+            xlaforms.register_strategies()
             ctx += [implicit_replication(), traceanalysis.dtensor_hooks(rec)]
         with fake, use_rules(self.mesh, self.rules, log), rec:
             for c in ctx:

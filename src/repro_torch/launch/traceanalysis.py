@@ -11,7 +11,8 @@ inference (fake tensors of another fake mode), which it runs once per op
 signature on global shapes.  From the records, ``analyze`` reckons:
 
 * ``flops``           — 2·M·N·K of every product on the local shards (mm,
-                        bmm, addmm, baddbmm) and the CUDA kernels' formulas:
+                        bmm, addmm, baddbmm, and ``xlaforms``'s dot_general)
+                        and the CUDA kernels' formulas:
                         what the reference counts, dots only;
 * ``remat_flops``     — the same, of products run while the checkpoint
                         recompute is active (``transformer.recomputing``);
@@ -50,9 +51,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from . import xlaforms
+
 aten = torch.ops.aten
 
-_PRODUCTS = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm}
+_PRODUCTS = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm, xlaforms.dot_general_op}
 _KERNELS = ("repro_torch.",)
 _REDUCTIONS = {aten.sum, aten.mean, aten.amax, aten.amin, aten.max, aten.min,
                aten.prod, aten.var, aten.var_mean, aten.std, aten._softmax,
@@ -242,43 +245,36 @@ def _register_replicated(op):
     _REPLICATED_OPS.add(op)
 
 
-def _two_hop(redistribute, recorder):
-    """``redistribute_local_tensor``, which goes through the replicated
-    placement where DTensor has no direct path between two placements (as
-    Shard to Partial)."""
-    def run(local, current, target, *args, **kwargs):
-        try:
-            return redistribute(local, current, target, *args, **kwargs)
-        except RuntimeError as e:
-            if "not supported" not in str(e):
-                raise
-            from torch.distributed.tensor import Replicate
-            from torch.distributed.tensor._dtensor_spec import DTensorSpec
-            key = f"redistribute {current.placements} -> {target.placements}"
-            recorder.replicated[key] = recorder.replicated.get(key, 0) + 1
-            mid = DTensorSpec(current.mesh, (Replicate(),) * current.mesh.ndim,
-                              tensor_meta=current.tensor_meta)
-            full = redistribute(local, current, mid, *args, **kwargs)
-            return redistribute(full, mid, target, *args, **kwargs)
-    return run
+# DTensor's refusals to place an op whose dim the mesh does not split evenly
+# (by message, in the torch releases the port runs on: 2.11 and 2.13).  The
+# trace runs such an op replicated, as XLA would reshard there, and counts it
+# in ``replicated_ops``; any other failure of DTensor's propagation raises.
+_UNEVEN = ("Cannot unflatten unevenly sharded tensor",
+           "Cannot flatten unevenly sharded tensor",
+           "Cannot shard unevenly distributed tensor",
+           "Attempted to split the sharded dimension",
+           "Attempted to flatten unevenly sharded dimension")
+_NO_STRATEGY = "does not have a sharding strategy registered"
 
 
 def _replicating(propagate, recorder):
-    """``propagate`` (DTensor's sharding propagation of one op), which, where
-    DTensor finds no placement for an op (it refuses an uneven split, or has
-    no strategy for the op), replicates the op's tensor arguments instead:
-    XLA would reshard there, and the trace counts the all-gathers.  An op
-    that DTensor decomposes (a composite) goes its own way."""
+    """``propagate`` (DTensor's sharding propagation of one op), which runs
+    the op replicated where DTensor refuses it for one of two reasons: an
+    uneven split (``_UNEVEN``), or no strategy at all for an op that has no
+    decomposition (such an op gets the all-replicated strategy).  Each is
+    counted in ``recorder.replicated`` under the op's name; every other
+    error propagates."""
     def run(schema):
         try:
             return propagate(schema)
-        except NotImplementedError:
-            if torch._C._dispatch_has_kernel_for_dispatch_key(
+        except NotImplementedError as e:
+            if _NO_STRATEGY not in str(e) or torch._C._dispatch_has_kernel_for_dispatch_key(
                     schema.op.name(), torch._C.DispatchKey.CompositeImplicitAutograd):
                 raise
-            _register_replicated(schema.op)   # an op with no strategy at all
-        except Exception:
-            pass
+            _register_replicated(schema.op)
+        except RuntimeError as e:
+            if not any(m in str(e) for m in _UNEVEN):
+                raise
         key = str(schema.op)
         recorder.replicated[key] = recorder.replicated.get(key, 0) + 1
         rep = _replicated_schema(schema)
@@ -297,16 +293,11 @@ def dtensor_hooks(recorder: Recorder):
     * DTensor's shape inference (its op on fake global-shaped arguments,
       once per op signature, in the trace's own fake mode) is muted in
       ``recorder``: it is not part of any device's program;
-    * an op DTensor finds no placement for, or has no strategy for, is run
-      replicated (``_replicating``), and a redistribution DTensor has no
-      direct path for goes through the replicated placement (``_two_hop``);
-    * ``_StridedShard``'s index arithmetic (small index tensors read back
-      with ``tolist()``) runs outside the trace's modes, where its tensors
-      have values.
+    * an op DTensor refuses for an uneven split, or has no strategy for, is
+      run replicated and counted (``_replicating``); any other refusal
+      raises.
     """
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor import placement_types as pt
-    from torch.utils._python_dispatch import _disable_current_modes
 
     @contextlib.contextmanager
     def mute():
@@ -323,33 +314,16 @@ def dtensor_hooks(recorder: Recorder):
                            "its shape inference cannot be told from the devices' ops")
     fallback_names = [n for n in ("propagate_op_sharding_non_cached", "propagate_op_sharding")
                       if hasattr(prop, n)]
-    cls = getattr(pt, "_StridedShard", None)
-    cls_names = [n for n in ("local_shard_size_and_offset", "_local_shard_size_and_offset")
-                 if cls is not None and n in vars(cls)]
-    saved = {n: vars(cls)[n] for n in cls_names}
-    from torch.distributed.tensor import _dispatch
-    redistribute = getattr(_dispatch, "redistribute_local_tensor", None)
     try:
-        if redistribute is not None:
-            _dispatch.redistribute_local_tensor = _two_hop(redistribute, recorder)
         for n in prop_names:
             setattr(prop, n, _wrap(getattr(prop, n), mute))
         for n in fallback_names:
             setattr(prop, n, _replicating(getattr(prop, n), recorder))
-        for n, raw in saved.items():
-            kind = type(raw) if isinstance(raw, (staticmethod, classmethod)) else None
-            fn = raw.__func__ if kind else raw
-            wrapped = _wrap(fn, _disable_current_modes)
-            setattr(cls, n, kind(wrapped) if kind else wrapped)
         yield
     finally:
-        if redistribute is not None:
-            _dispatch.redistribute_local_tensor = redistribute
         for n in prop_names + fallback_names:
             if n in vars(prop):
                 delattr(prop, n)      # the instance attribute; the class's returns
-        for n, raw in saved.items():
-            setattr(cls, n, raw)
 
 
 def analyze(records, arg_bytes: int = 0, out_new_bytes: int = 0,

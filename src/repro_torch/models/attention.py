@@ -24,7 +24,7 @@ import torch
 
 from ..kernels.decode_attention import flash_decode
 from ..kernels.flash_attention import flash_attention
-from ..launch.sharding import maybe_constrain, pad as padded, rules_active
+from ..launch.sharding import maybe_constrain
 from .layers import apply_rope, proj_heads
 from .module import ParamSpec
 
@@ -119,11 +119,11 @@ def local_chunk_attention(q, k, v, positions_q, positions_kv, window):
     nc = -(-S // C)
     pad = nc * C - S
     if pad:
-        q = padded(q, (0, 0, 0, 0, 0, 0, 0, pad))
-        k = padded(k, (0, 0, 0, 0, 0, pad))
-        v = padded(v, (0, 0, 0, 0, 0, pad))
-        positions_q = padded(positions_q, (0, pad), value=-(2**30))
-        positions_kv = padded(positions_kv, (0, pad), value=2**30)
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        positions_q = torch.nn.functional.pad(positions_q, (0, pad), value=-(2**30))
+        positions_kv = torch.nn.functional.pad(positions_kv, (0, pad), value=2**30)
     qc = q.reshape(B, nc, C, KV, G, dh)
     kc = k.reshape(B, nc, C, KV, dh)
     vc = v.reshape(B, nc, C, KV, dh)
@@ -172,20 +172,10 @@ def decode_attention(p, cache, x, position, *, n_heads, n_kv, d_head,
     q, k, v = qkv_proj(p, x, n_heads, n_kv, d_head, position[:, None],
                        rope_theta, use_rope)
     slot = position % T if window is not None else torch.clamp(position, max=T - 1)
-    if rules_active():
-        # under sharding rules (the measurement's traces), the JAX package's
-        # masked-where write: elementwise over the cache, so it partitions
-        # under cache_seq sharding, where a scatter would need the slot's shard
-        hit = torch.arange(T, dtype=torch.int32, device=x.device)[None, :] == slot[:, None]
-        for name, new in (("k", k), ("v", v), ("pos", position[:, None].to(torch.int32))):
-            c = cache[name]
-            mask = hit[..., None, None] if c.dim() == 4 else hit
-            c.copy_(torch.where(mask, new.to(c.dtype), c))
-    else:
-        bidx = torch.arange(B, device=x.device)
-        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["pos"][bidx, slot] = position.to(torch.int32)
+    bidx = torch.arange(B, device=x.device)
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, slot] = position.to(torch.int32)
     kk, vv, pos_kv = cache["k"], cache["v"], cache["pos"]
     g = n_heads // n_kv
     q = maybe_constrain(q, ("batch", None, "kv_heads", "heads", "head_dim"))

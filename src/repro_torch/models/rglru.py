@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rglru_scan import rglru_scan
-from ..launch.sharding import maybe_constrain, pad as padded
+from ..launch.sharding import maybe_constrain
 from .module import ParamSpec
 
 C_RGLRU = 8.0
@@ -58,7 +58,7 @@ def _conv_full(p, xb):
     S = xb.shape[1]
     out = p["conv_b"].to(xb.dtype) * torch.ones_like(xb)
     for j in range(CONV_K):
-        shifted = padded(xb, (0, 0, j, 0))[:, :S]
+        shifted = F.pad(xb, (0, 0, j, 0))[:, :S]
         out = out + shifted * p["conv_w"][CONV_K - 1 - j].to(xb.dtype)
     return out
 
@@ -121,7 +121,7 @@ def rglru_with_state(p, x, n_blocks, use_kernel):
     hs = rglru_scan(a, gated) if use_kernel else associative_scan(a, gated)
     y = F.gelu(x @ p["wy"], approximate="tanh")
     out = (hs.to(x.dtype) * y) @ p["wo"]
-    hist = padded(xb, (0, 0, CONV_K - 1, 0))[:, -(CONV_K - 1):]
+    hist = F.pad(xb, (0, 0, CONV_K - 1, 0))[:, -(CONV_K - 1):]
     return out, {"h": hs[:, -1], "conv": hist}
 
 

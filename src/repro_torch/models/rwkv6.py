@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..kernels.ref import rwkv6_wkv_ref
 from ..kernels.rwkv6_kernel import rwkv6_wkv
-from ..launch.sharding import maybe_constrain, pad as padded
+from ..launch.sharding import maybe_constrain
 from .layers import proj_heads
 from .module import ParamSpec
 
@@ -62,7 +62,7 @@ def channelmix_specs(d: int, f: int):
 
 def _shift(x):
     """The previous token along axis 1 (zero before the first)."""
-    return padded(x, (0, 0, 1, 0))[:, :x.shape[1]]
+    return F.pad(x, (0, 0, 1, 0))[:, :x.shape[1]]
 
 
 def _ddlerp(p, x, xx):
@@ -102,7 +102,7 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int = 16):
     dt = r.dtype
 
     def chunks(x):
-        return padded(x, (0, 0, 0, 0, 0, pad)).reshape(B, nc, C, H, hs)
+        return F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(B, nc, C, H, hs)
     # pad the decay with log(1) = 0: padded steps must not decay the carried
     # state (k/v pads are zero, so they contribute nothing either)
     rc, kc, vc, wc = chunks(r), chunks(k), chunks(v), chunks(w_log.float())

@@ -11,12 +11,15 @@ says (``_remat_wrap``).  MoE and the vit/encodec frontends raise
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+from torch.overrides import _get_current_function_mode_stack
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from . import rglru as rg
@@ -25,7 +28,7 @@ from .layers import (apply_glu_mlp, apply_norm, apply_plain_mlp, embed_lookup,
                      glu_mlp_specs, norm_specs, plain_mlp_specs)
 from .module import ParamSpec, map_specs, stack_layer_specs, tree_map
 from ..configs.base import ModelConfig, RunPolicy
-from ..launch.sharding import maybe_constrain, pad as padded, rules_active
+from ..launch.sharding import maybe_constrain
 
 _LATER = {
     "moe": "MoE blocks: ROADMAP module queue, MoE",
@@ -237,18 +240,8 @@ def _rwkv_block_full(p, x, cfg, policy, cache_len):
 
 def _cache_from_kv(k, v, positions, cache_len, cfg):
     B, S = k.shape[:2]
-    # in the measurement's traces (sharding rules on) the cache is built
-    # without writes into a fresh tensor, as the JAX package builds it
-    functional = rules_active()
     if cfg.window is not None and cache_len < S:
         kk, vv, pos = k[:, -cache_len:], v[:, -cache_len:], positions[:, -cache_len:]
-        if functional:
-            # prefill positions are 0..S-1, so slot (S - L + j) % L of the
-            # last L tokens is (j + S % L) % L: a roll by S % L
-            r = S % cache_len
-            roll = (lambda t: t) if r == 0 else \
-                (lambda t: torch.cat([t[:, cache_len - r:], t[:, :cache_len - r]], 1))
-            return {"k": roll(kk), "v": roll(vv), "pos": roll(pos.to(torch.int32))}
         slot = (pos % cache_len).long()
         bidx = torch.arange(B, device=k.device)[:, None]
         ck = torch.zeros((B, cache_len) + k.shape[2:], dtype=k.dtype, device=k.device)
@@ -261,9 +254,6 @@ def _cache_from_kv(k, v, positions, cache_len, cfg):
     pad = cache_len - S
     if pad < 0:
         raise ValueError("cache_len < seq_len for linear cache")
-    if functional:
-        return {"k": padded(k, (0, 0, 0, 0, 0, pad)), "v": padded(v, (0, 0, 0, 0, 0, pad)),
-                "pos": padded(positions.to(torch.int32), (0, pad), value=-1)}
     ck = torch.zeros((B, cache_len) + k.shape[2:], dtype=k.dtype, device=k.device)
     cv = torch.zeros_like(ck)
     cp = torch.full((B, cache_len), -1, dtype=torch.int32, device=k.device)
@@ -358,9 +348,20 @@ def _unit(tree, u):
     return tree_map(lambda a: a[u], tree)
 
 
-# the unbatched matmuls: the analogue of JAX's dots_with_no_batch_dims_saveable
-_SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
-                               [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+# the products whose outputs remat "dots" keeps: the unbatched matmuls, the
+# analogue of JAX's dots_with_no_batch_dims_saveable.  An op maps to None
+# (always kept) or to a predicate of its arguments; a tracer that runs the
+# step in other product ops adds them here.
+SAVED_PRODUCTS = {torch.ops.aten.mm.default: None, torch.ops.aten.addmm.default: None}
+
+
+def _save_dots_policy(ctx, op, *args, **kwargs):
+    if op in SAVED_PRODUCTS and (SAVED_PRODUCTS[op] is None or SAVED_PRODUCTS[op](*args)):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts, _save_dots_policy)
 
 
 _RECOMPUTE_DEPTH = [0]
@@ -372,15 +373,20 @@ def recomputing() -> bool:
     return _RECOMPUTE_DEPTH[0] > 0
 
 
-def _marked(fn):
+def _marked(fn, modes):
     """``fn``, which marks the calls that autograd makes in backward (the
-    recompute) for ``recomputing``."""
+    recompute) for ``recomputing`` and runs them under ``modes``, the
+    torch-function modes of the forward (autograd's recompute does not
+    restore them)."""
     def run(*args):
         if torch._C._current_graph_task_id() == -1:
             return fn(*args)
         _RECOMPUTE_DEPTH[0] += 1
         try:
-            return fn(*args)
+            with contextlib.ExitStack() as stack:
+                for m in modes:
+                    stack.enter_context(m)
+                return fn(*args)
         finally:
             _RECOMPUTE_DEPTH[0] -= 1
     return run
@@ -389,8 +395,8 @@ def _marked(fn):
 def _remat_wrap(fn, policy: RunPolicy):
     """Rematerialise ``fn`` in backward, the counterpart of the JAX package's
     ``_remat_wrap``.  ``none`` keeps every activation; ``full`` recomputes
-    all of ``fn``; ``dots`` keeps the outputs of ``aten.mm``/``aten.addmm``
-    and recomputes the rest.  Under ``dots`` and ``full`` the flash-attention
+    all of ``fn``; ``dots`` keeps the outputs of ``SAVED_PRODUCTS``
+    (``aten.mm``/``aten.addmm``) and recomputes the rest.  Under ``dots`` and ``full`` the flash-attention
     forward therefore runs twice per layer in a training step.  Without
     autograd (prefill under ``inference_mode``) ``fn`` runs as it is."""
     if policy.remat == "none":
@@ -398,12 +404,12 @@ def _remat_wrap(fn, policy: RunPolicy):
     if policy.remat not in ("dots", "full"):
         raise ValueError(f"remat {policy.remat!r} not in none | dots | full")
     kw = {"context_fn": _SAVE_DOTS} if policy.remat == "dots" else {}
-    marked = _marked(fn)
 
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(marked, *args, use_reentrant=False, **kw)
+        modes = _get_current_function_mode_stack()
+        return checkpoint(_marked(fn, modes), *args, use_reentrant=False, **kw)
     return wrapped
 
 
@@ -492,16 +498,7 @@ def lm_loss(logits, labels):
     V = logits.shape[-1]
     mask = labels >= 0
     labels_c = labels.clamp(0, V - 1).long()
-    if rules_active():
-        # the measurement's traces: reductions over the vocab dim and a
-        # one-hot pick, which keep a vocab-sharded DTensor sharded (its
-        # log_softmax and gather would first replicate the whole vocab)
-        m = logits.detach().amax(dim=-1, keepdim=True)
-        lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
-        picked = (logits * torch.nn.functional.one_hot(labels_c, V).to(logits.dtype)).sum(-1)
-        ll = picked - lse
-    else:
-        logp = torch.log_softmax(logits, dim=-1)
-        ll = torch.gather(logp, -1, labels_c[..., None])[..., 0]
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels_c[..., None])[..., 0]
     n = torch.clamp(mask.sum(), min=1)
     return -(ll * mask).sum() / n

@@ -23,6 +23,7 @@ for n in ("repro_torch.train.optimizer", "repro_torch.train.train_step",
           "repro_torch.data.pipeline", "repro_torch.launch.train",
           "repro_torch.hw", "repro_torch.launch.sharding", "repro_torch.launch.mesh",
           "repro_torch.launch.steps", "repro_torch.launch.traceanalysis",
+          "repro_torch.launch.xlaforms", "repro_torch.core.parity",
           "repro_torch.core.benchscale", "repro_torch.core.analytic",
           "repro_torch.core.counters", "repro_torch.core.searchspace",
           "repro_torch.core.anomaly", "repro_torch.kernels.traceable"):

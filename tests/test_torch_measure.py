@@ -1,9 +1,13 @@
 """Port vs reference: the measurement of Collie search points.
 
-* By verdict: the committed corpus's witnesses and controls that need no MoE
+* By kinds: the committed corpus's witnesses and controls that need no MoE
   (``repro_torch.core.parity.corpus_points``), measured by both packages
-  with the kernels off; a witness must show its entry's kind and a control
-  must not, as the reference's corpus replay holds them.
+  with the kernels off; the port reports exactly the reference's kinds,
+  except the listed differences (``parity.KIND_DIFFERENCES``, both kind
+  sets and the deciding counter's values), so a witness shows its entry's
+  kind and a control does not, as the reference's corpus replay holds them.
+  The reference's kinds and ratio are also those ``parity.REFERENCE`` keeps
+  for the card, and only ``parity.REPLICATED_OPS`` may run replicated.
 * Within a stated bound: ``perf.useful_flops_ratio`` within
   ``parity.USEFUL_RATIO_REL_BOUND`` of the reference's, except the listed
   differences of construction (``parity.USEFUL_RATIO_DIFFERENCES``).
@@ -108,6 +112,7 @@ def measured(tmp_path_factory):
         m = measure_cell(build_cell(cfg, shape, policy, meshes[mk]), device="cpu")
         c = m.counters()
         port.append({"counters": c, "kinds": sorted(anomaly.kinds(c, policy.remat)),
+                     "replicated_ops": m.hlo["replicated_ops"],
                      "hlo_bytes_per_dev": m.roofline["hlo_bytes_per_dev"],
                      "collective_wire_per_dev": m.roofline["collective_wire_per_dev"],
                      "trace_s": m.compile_s})
@@ -136,20 +141,32 @@ def test_corpus_point_verdict_and_useful_flops_match_reference(measured, i):
           f"{port['hlo_bytes_per_dev']:.4g} vs {ref['hlo_bytes_per_dev']:.4g}; wire/dev "
           f"{port['collective_wire_per_dev']:.4g} vs {ref['collective_wire_per_dev']:.4g}; "
           f"trace {port['trace_s']:.2f} s, ref compile {ref['compile_s']:.2f} s")
-    # the reference itself still gives the committed verdict
+    # the reference itself still gives the committed verdict, and the values
+    # the port keeps of it (for the card, where the reference is not run)
     assert parity.verdict_ok(kind, role, ref["kinds"])
-    if parity.point_key(p) in parity.VERDICT_DIFFERENCES:
-        assert not parity.verdict_ok(kind, role, port["kinds"])
-    else:
-        assert parity.verdict_ok(kind, role, port["kinds"]), (port["kinds"], ref["kinds"])
+    key = parity.corpus_key(p, role)
     got = port["counters"]["perf.useful_flops_ratio"]
     want = ref["counters"]["perf.useful_flops_ratio"]
-    listed = parity.USEFUL_RATIO_DIFFERENCES.get(parity.point_key(p))
+    assert parity.REFERENCE[key] == (tuple(ref["kinds"]), round(want, 4))
+    # the port reports the reference's kinds, or a listed difference exactly
+    # (both kind sets, and the deciding counter's two values to 4 digits)
+    listed = parity.KIND_DIFFERENCES.get(key)
     if listed is None:
-        assert abs(got - want) <= parity.USEFUL_RATIO_REL_BOUND * want, (got, want)
+        assert port["kinds"] == ref["kinds"], (port["kinds"], ref["kinds"])
     else:
+        kinds_port, kinds_ref, counter, v_port, v_ref, _ = listed
+        assert (tuple(port["kinds"]), tuple(ref["kinds"])) == (kinds_port, kinds_ref)
+        assert (f"{port['counters'][counter]:.4g}", f"{ref['counters'][counter]:.4g}") == \
+            (f"{v_port:.4g}", f"{v_ref:.4g}")
+    assert tuple(port["kinds"]) == parity.expected_kinds(p, role)
+    assert parity.verdict_ok(kind, role, port["kinds"])
+    assert parity.useful_ok(parity.point_key(p), got, want), (got, want)
+    if parity.point_key(p) in parity.USEFUL_RATIO_DIFFERENCES:
         # a listed difference keeps its recorded values (both 4 decimals)
+        listed = parity.USEFUL_RATIO_DIFFERENCES[parity.point_key(p)]
         assert (round(got, 4), round(want, 4)) == listed[:2]
+    # only the listed refusals of DTensor run an op replicated
+    assert set(port["replicated_ops"]) <= set(parity.REPLICATED_OPS), port["replicated_ops"]
     # exact parts of the counter dict
     for k in ("diag.shard_fallbacks",):
         assert port["counters"][k] == ref["counters"][k]
