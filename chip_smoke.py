@@ -52,11 +52,28 @@ Phases (any failure exits non-zero and prints no result line):
               cuda tensors), each point's kinds exactly the reference's
               (``parity.REFERENCE``) or a listed difference, its useful-FLOP
               ratio within 10 % of the reference's, and no op run
-              replicated but the listed ones; the same points kernels on
+              replicated but those ``parity.REPLICATED_OPS`` admits at the
+              point's class; the same points kernels on
               (no launch, no pointer read; counter deltas printed);
               qwen2-1.5b at train_4k on the 16x16 production mesh (useful
               ratio within 10 % of the CPU trace's, no unlisted replicated
               op; counters and trace seconds printed).
+3e. search — Collie's campaign end to end on the traced counters, in
+              processes of their own: ``python -m
+              repro_torch.examples.collie_search --device cuda --budget 24``
+              (the restricted serving space of the JAX package's
+              ``examples/collie_search.py``: qwen2-1.5b-bench and
+              tinyllama-1.1b-bench, prefill_s and decode_s, on the bench
+              meshes; fake cuda tensors, no kernel) with 4 workers and a
+              fresh temporary ``COLLIE_CACHE``: it must end with no failed
+              trace, at least one event and no op run replicated at a point
+              whose class ``parity.REPLICATED_OPS`` does not admit it (by
+              arch, preset, shape kind and microbatch count); then the same
+              command in a new
+              process with another ``PYTHONHASHSEED``, one worker and the
+              same cache must trace nothing (no lowering, no mesh trace) and
+              print the same catalog and events.  The anomaly table, the MFS
+              list, the engine's counts and host seconds are printed.
 4. serve    — qwen2-1.5b at full published width, random weights from a
               seeded generator, ServingEngine(n_slots=4, cache_len=4096,
               temperature=0) over 8 requests; launch counts must equal
@@ -110,8 +127,11 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1799,7 +1819,7 @@ def measure_main():
     controls that need no MoE, measured by ``measure_cell`` (V5E spec,
     kernels off) on fake cuda tensors, each held to the reference's kinds
     and useful-FLOP ratio that ``core/parity.py`` keeps (or a listed
-    difference), with no op run replicated but the listed ones; the same
+    difference), with no op run replicated but those listed for its class; the same
     points kernels on (nothing may launch and no pointer may be read; the
     counter deltas are printed, not gated); then qwen2-1.5b at train_4k on
     the 16x16 production mesh, held to the CPU trace's useful-FLOP ratio.
@@ -1845,9 +1865,11 @@ def measure_main():
         if not parity.useful_ok(key, useful, ref_useful):
             fail(f"measure: the {role} {key} has useful-FLOP ratio {useful:.4f}, not "
                  f"within {parity.USEFUL_RATIO_REL_BOUND:.0%} of {ref_useful:.4f}")
-        unlisted = set(m.hlo["replicated_ops"]) - set(parity.REPLICATED_OPS)
+        unlisted = parity.unlisted_replications(m.hlo["replicated_ops"], cfg.name,
+                                                policy.sharding_preset, shape.kind,
+                                                policy.n_microbatch)
         if unlisted:
-            fail(f"measure: the {role} {key} ran unlisted ops replicated: {sorted(unlisted)}")
+            fail(f"measure: the {role} {key} ran unlisted ops replicated: {unlisted}")
         row = {"kind": kind, "role": role, "point": key, "kinds": kinds,
                "trace_s": m.compile_s, "counters": c}
         on = dataclasses.replace(policy, use_pallas=True)
@@ -1874,7 +1896,8 @@ def measure_main():
         summary["points"].append(row)
     cfg, shape = get_config("qwen2-1.5b"), SHAPES["train_4k"]
     t0 = time.perf_counter()
-    m = measure_cell(build_cell(cfg, shape, RunPolicy(), make_production_mesh()),
+    policy = RunPolicy()
+    m = measure_cell(build_cell(cfg, shape, policy, make_production_mesh()),
                      device="cuda")
     c = m.counters()
     print(f"measure full width: {cfg.name} {shape.name} (seq {shape.seq_len}, batch "
@@ -1886,9 +1909,11 @@ def measure_main():
     if abs(useful - want) > parity.USEFUL_RATIO_REL_BOUND * want:
         fail(f"measure: the full-width point has useful-FLOP ratio {useful:.4f}, not "
              f"within {parity.USEFUL_RATIO_REL_BOUND:.0%} of the CPU trace's {want:.4f}")
-    unlisted = set(m.hlo["replicated_ops"]) - set(parity.REPLICATED_OPS)
+    unlisted = parity.unlisted_replications(m.hlo["replicated_ops"], cfg.name,
+                                            policy.sharding_preset, shape.kind,
+                                            policy.n_microbatch)
     if unlisted:
-        fail(f"measure: the full-width point ran unlisted ops replicated: {sorted(unlisted)}")
+        fail(f"measure: the full-width point ran unlisted ops replicated: {unlisted}")
     summary["full_width"] = {"trace_s": m.compile_s, "counters": c}
     summary["seconds"] = time.perf_counter() - t_all
     print(json.dumps({"measure": summary}), flush=True)
@@ -1904,6 +1929,74 @@ def measure_phase():
         print(proc.stderr[-6000:], file=sys.stderr, flush=True)
         fail("measure: the measure phase failed")
     return json.loads(proc.stdout.strip().splitlines()[-1])["measure"]
+
+
+SEARCH_BUDGET = 24
+SEARCH_WORKERS = 4
+
+
+def search_run(tmp, tag, workers, hash_seed):
+    """One run of the port's ``collie_search`` CLI on the card's host, with
+    the cache in ``tmp``: -> (stdout, its JSON report, host seconds)."""
+    report = Path(tmp) / f"{tag}.json"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("COLLIE_")}
+    env.update(PYTHONPATH=str(ROOT / "src"), PYTHONHASHSEED=str(hash_seed),
+               COLLIE_CACHE=str(Path(tmp) / "cache.sqlite"), COLLIE_WORKERS=str(workers))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.examples.collie_search",
+                           "--device", "cuda", "--budget", str(SEARCH_BUDGET),
+                           "--report", str(report)],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-6000:], file=sys.stderr, flush=True)
+        fail(f"search: the {tag} run failed")
+    return proc.stdout, json.loads(report.read_text()), seconds
+
+
+def search_phase(smi_line):
+    """The cold and the warm run of the Collie campaign (phase 3e)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import parity
+    with tempfile.TemporaryDirectory(prefix="collie_search_") as tmp:
+        cold_out, cold, cold_s = search_run(tmp, "cold", SEARCH_WORKERS, 1)
+        warm_out, warm, warm_s = search_run(tmp, "warm", 1, 4242)
+    print(cold_out.rstrip(), flush=True)
+    cs, ws = cold["stats"], warm["stats"]
+    for tag, st, sec in (("cold", cs, cold_s), ("warm", ws, warm_s)):
+        print(f"search {tag}: {st['n_workers']} workers, n_attempts {st['n_attempts']}, "
+              f"n_compiles {st['n_compiles']}, n_lowerings {st['n_lowerings']}, "
+              f"n_struct_hits {st['n_struct_hits']}, n_cache_hits {st['n_cache_hits']}, "
+              f"n_disk_hits {st['n_disk_hits']}, n_failures {st['n_failures']}; host "
+              f"seconds: lower_time {st['lower_time']:.2f}, compile_time "
+              f"{st['compile_time']:.2f} (summed over workers), run {sec:.2f}, "
+              f"{sec / max(st['n_attempts'], 1):.3f} per attempt; {smi_line}", flush=True)
+    for a in cold["anomalies"]:
+        conds = ", ".join(f"{k}={'|'.join(map(str, v))}"
+                          for k, v in sorted(a["conditions"].items()))
+        print(f"search MFS: [{a['kind']}] {conds}", flush=True)
+    print(f"search: ops the traces ran replicated {json.dumps(cold['replicated_ops'])}, "
+          f"by (arch, preset, shape kind, n_microbatch) {json.dumps(cold['replicated_at'])}",
+          flush=True)
+    if cs["n_failures"] or cold["errors"]:
+        fail(f"search: {cs['n_failures']} traces failed: {cold['errors'][:5]}")
+    if not cold["events"]:
+        fail("search: the cold run recorded no event")
+    unlisted = parity.unlisted_at({tuple(cls) or None: ops for cls, ops in cold["replicated_at"]})
+    if unlisted:
+        fail(f"search: the traces ran ops replicated where parity.REPLICATED_OPS does not "
+             f"admit them: {unlisted}")
+    if ws["n_compiles"] or ws["n_lowerings"] or ws["n_failures"]:
+        fail(f"search: the warm run traced (n_compiles {ws['n_compiles']}, n_lowerings "
+             f"{ws['n_lowerings']}, n_failures {ws['n_failures']})")
+    strip = lambda out: re.sub(r"\(\d+s\)", "", out)
+    if strip(warm_out) != strip(cold_out):
+        fail("search: the warm run printed another catalog than the cold run")
+    if (warm["events"], warm["anomalies"], warm["n_attempts"]) != \
+            (cold["events"], cold["anomalies"], cold["n_attempts"]):
+        fail("search: the warm run's events or anomalies differ from the cold run's")
+    return {"cold_s": cold_s, "warm_s": warm_s, "cold": cs, "warm": ws,
+            "n_events": len(cold["events"]), "n_anomalies": len(cold["anomalies"])}
 
 
 # ---------------------------------------------------------------- main
@@ -1987,6 +2080,16 @@ def main():
     phase_seconds["measure"] = time.perf_counter() - t_phase
     print(f"measure: {len(measured['points'])} corpus points, kernels off and on, and the "
           f"full-width point in {measured['seconds']:.1f} s", flush=True)
+
+    phase("search")
+    t_phase = time.perf_counter()
+    searched = search_phase(smi_line)
+    phase_seconds["search"] = time.perf_counter() - t_phase
+    print(f"search: {searched['n_events']} events, {searched['n_anomalies']} anomalies in "
+          f"{searched['cold']['n_attempts']} attempts; cold {searched['cold_s']:.1f} s "
+          f"({searched['cold']['n_compiles']} mesh traces, {searched['cold']['n_struct_hits']} "
+          f"structural hits), warm {searched['warm_s']:.1f} s ({searched['warm']['n_compiles']} "
+          f"mesh traces) (host)", flush=True)
 
     phase("serve")
     t_phase = time.perf_counter()

@@ -27,17 +27,29 @@ divided by the mesh size, collectives and peak memory absent.
 
 Fake tensors live on ``device`` (``cuda`` by default; the CPU tests pass
 ``"cpu"``): nothing is allocated or launched either way.
+
+Traces are serialised: both phases hold ``TRACE_LOCK``, one lock for the
+process.  A trace installs process-global hooks on DTensor's sharding
+propagator (``traceanalysis.dtensor_hooks``, bound to that trace's recorder)
+and fills ``Mesh.device_mesh``'s cache, so two traces at once would record
+into each other's recorder and strip each other's hooks.  A trace is Python
+and holds the GIL, so running them one at a time loses nothing.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+import threading
 import time
 from typing import Any
 
 from .. import hw
 from . import analytic
+
+
+# held by every trace, lower or compile (see the module docstring)
+TRACE_LOCK = threading.RLock()
 
 
 @dataclasses.dataclass
@@ -107,10 +119,11 @@ def _specs_text(cell, constraints) -> str:
 def lower_cell(cell, chip: hw.ChipSpec = hw.V5E, device: str = "cuda") -> LoweredCell:
     """Trace the step on global fake tensors and fingerprint its structure."""
     from ..launch import traceanalysis
-    t0 = time.time()
-    lowered = cell.lower(device)
-    text = traceanalysis.canonical_log(lowered.records)
-    lower_s = time.time() - t0
+    with TRACE_LOCK:
+        t0 = time.time()
+        lowered = cell.lower(device)
+        text = traceanalysis.canonical_log(lowered.records)
+        lower_s = time.time() - t0
     floors, mf_useful = _floors_of(cell, chip)
     h = hashlib.sha256(text.encode())
     h.update(_specs_text(cell, lowered.constraints).encode())
@@ -155,10 +168,11 @@ def lowered_counters(lc: LoweredCell, chip: hw.ChipSpec = hw.V5E) -> dict:
 def compile_lowered(lc: LoweredCell, chip: hw.ChipSpec = hw.V5E) -> Measurement:
     """Trace the step on the mesh's DTensors and assemble the counters."""
     cell = lc.cell
-    t0 = time.time()
-    trace = cell.trace(lc.device)
-    compile_s = lc.lower_s + (time.time() - t0)
-    cell.release_lowered()
+    with TRACE_LOCK:
+        t0 = time.time()
+        trace = cell.trace(lc.device)
+        compile_s = lc.lower_s + (time.time() - t0)
+        cell.release_lowered()
     hlo = trace.analyze()
     memory = {
         "argument_bytes": trace.arg_bytes,

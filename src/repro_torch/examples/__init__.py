@@ -1,0 +1,1 @@
+"""Command-line examples of the port (``python -m repro_torch.examples.<name>``)."""

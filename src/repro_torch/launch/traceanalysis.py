@@ -253,20 +253,47 @@ _UNEVEN = ("Cannot unflatten unevenly sharded tensor",
            "Cannot flatten unevenly sharded tensor",
            "Cannot shard unevenly distributed tensor",
            "Attempted to split the sharded dimension",
-           "Attempted to flatten unevenly sharded dimension")
+           "Attempted to flatten unevenly sharded dimension",
+           "This operation would remove or reshape sharded dimension")
 _NO_STRATEGY = "does not have a sharding strategy registered"
+
+
+def _unplaceable(spec) -> bool:
+    """Whether an output spec shards a dim over more ranks than the dim has
+    entries (DTensor's view rule can plan that when it splits a sharded dim,
+    e.g. a batch of 32 on 32 ranks viewed as 4 microbatches of 8, and the
+    local op then fails), or strided-shards it (a view that flattens a dim
+    sharded behind an unsharded one: the strategies of an op registered with
+    ``register_sharding`` cannot take such an argument, and a fake trace
+    cannot gather it)."""
+    for s in spec if isinstance(spec, (list, tuple)) else (spec,):
+        meta = getattr(s, "tensor_meta", None)
+        if meta is None:
+            continue
+        ways: dict = {}
+        for size, pl in zip(s.mesh.shape, s.placements):
+            if type(pl).__name__ == "_StridedShard":
+                return True
+            if pl.is_shard():
+                ways[pl.dim] = ways.get(pl.dim, 1) * size
+        if any(n > meta.shape[d] for d, n in ways.items()):
+            return True
+    return False
 
 
 def _replicating(propagate, recorder):
     """``propagate`` (DTensor's sharding propagation of one op), which runs
     the op replicated where DTensor refuses it for one of two reasons: an
-    uneven split (``_UNEVEN``), or no strategy at all for an op that has no
+    uneven split (``_UNEVEN``, or a plan whose output no later op can take,
+    ``_unplaceable``), or no strategy at all for an op that has no
     decomposition (such an op gets the all-replicated strategy).  Each is
     counted in ``recorder.replicated`` under the op's name; every other
     error propagates."""
     def run(schema):
         try:
-            return propagate(schema)
+            out = propagate(schema)
+            if not _unplaceable(out.output_spec):
+                return out
         except NotImplementedError as e:
             if _NO_STRATEGY not in str(e) or torch._C._dispatch_has_kernel_for_dispatch_key(
                     schema.op.name(), torch._C.DispatchKey.CompositeImplicitAutograd):

@@ -30,6 +30,14 @@ def specs(cfg: ModelConfig):
     return tfm.build_specs(cfg)
 
 
+@functools.lru_cache(maxsize=64)
+def _count_specs(cfg: ModelConfig):
+    """The specs that parameter counts read: every arch's, those whose
+    blocks the port does not run yet included (the analytic floors and the
+    surrogate count them)."""
+    return tfm.build_specs(cfg, runnable=False)
+
+
 def init(cfg: ModelConfig, seed: int = 0, device="cuda",
          param_dtype=torch.float32):
     """Random parameters drawn on ``device`` from per-path seeded generators."""
@@ -45,12 +53,12 @@ def axes(cfg: ModelConfig):
 
 
 def n_params(cfg: ModelConfig) -> int:
-    return count_params(specs(cfg))
+    return count_params(_count_specs(cfg))
 
 
 def n_active_params(cfg: ModelConfig) -> int:
     """Active params per token (MoE: top_k of n_experts)."""
-    total = count_params(specs(cfg))
+    total = count_params(_count_specs(cfg))
     if not cfg.n_experts:
         return total
     expert_p = 3 * cfg.d_model * cfg.d_ff * cfg.n_experts * cfg.n_layers
@@ -66,7 +74,7 @@ def matmul_active_params(cfg: ModelConfig) -> int:
     useful-FLOPs anomaly check at any model scale.
     """
     total = 0
-    for path, s in tree_paths(specs(cfg)):
+    for path, s in tree_paths(_count_specs(cfg)):
         if len(s.shape) < 2:
             continue
         n = int(np.prod(s.shape))

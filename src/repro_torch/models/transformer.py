@@ -17,6 +17,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.overrides import _get_current_function_mode_stack
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -65,7 +66,9 @@ def block_specs(cfg: ModelConfig, bt: str):
                 "tm": rwkv.timemix_specs(cfg.d_model, cfg.n_heads, cfg.head_size),
                 "ln2": norm_specs(cfg.d_model, cfg.norm),
                 "cm": rwkv.channelmix_specs(cfg.d_model, cfg.d_ff)}
-    if cfg.act == "gelu" and cfg.norm == "layernorm":
+    if cfg.n_experts:
+        mlp = moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts)
+    elif cfg.act == "gelu" and cfg.norm == "layernorm":
         mlp = plain_mlp_specs(cfg.d_model, cfg.d_ff)   # musicgen-style
     else:
         mlp = glu_mlp_specs(cfg.d_model, cfg.d_ff)
@@ -81,13 +84,35 @@ def n_units_tail(cfg: ModelConfig):
     return cfg.n_layers // plen, cfg.n_layers % plen
 
 
-def build_specs(cfg: ModelConfig):
-    _check_supported(cfg)
+def moe_specs(d: int, f: int, n_experts: int):
+    """The MoE block's parameters, as the JAX package's ``moe_specs``: their
+    shapes count in the analytic floors; the block itself waits for its
+    ROADMAP item."""
+    return {
+        "router": ParamSpec((d, n_experts), ("embed", "expert")),
+        "wi_gate": ParamSpec((n_experts, d, f), ("expert", "embed", "mlp")),
+        "wi_up": ParamSpec((n_experts, d, f), ("expert", "embed", "mlp")),
+        "wo": ParamSpec((n_experts, f, d), ("expert", "mlp", "embed")),
+    }
+
+
+def _table_specs(cfg: ModelConfig):
+    if cfg.frontend == "encodec":
+        return {"table": ParamSpec((cfg.n_codebooks, cfg.vocab_size, cfg.d_model),
+                                   (None, "vocab", "embed"), "embed")}
+    return {"table": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), "embed")}
+
+
+def build_specs(cfg: ModelConfig, runnable: bool = True):
+    """The parameter specs of ``cfg``.  ``runnable=False`` also gives those of
+    the archs whose blocks the port does not run yet (MoE, the vit and
+    encodec frontends), for counting parameters; by default they raise."""
+    if runnable:
+        _check_supported(cfg)
     n_units, tail = n_units_tail(cfg)
     unit = {f"b{i}": block_specs(cfg, bt) for i, bt in enumerate(cfg.block_pattern)}
     specs: dict[str, Any] = {
-        "embed": {"table": ParamSpec((cfg.vocab_size, cfg.d_model),
-                                     ("vocab", "embed"), "embed")},
+        "embed": _table_specs(cfg),
         "units": map_specs(lambda s: stack_layer_specs(s, n_units), unit),
         "final_norm": norm_specs(cfg.d_model, cfg.norm),
     }
@@ -95,8 +120,13 @@ def build_specs(cfg: ModelConfig):
         specs["tail"] = {f"t{i}": block_specs(cfg, cfg.block_pattern[i])
                          for i in range(tail)}
     if not cfg.tie_embeddings:
-        specs["unembed"] = {"table": ParamSpec((cfg.vocab_size, cfg.d_model),
-                                               ("vocab", "embed"), "embed")}
+        specs["unembed"] = _table_specs(cfg)
+    if cfg.frontend == "vit":
+        specs["projector"] = {
+            "ln": norm_specs(cfg.d_frontend, cfg.norm),
+            "w1": ParamSpec((cfg.d_frontend, cfg.d_model), (None, "embed")),
+            "w2": ParamSpec((cfg.d_model, cfg.d_model), ("embed", None)),
+        }
     return specs
 
 
@@ -254,13 +284,10 @@ def _cache_from_kv(k, v, positions, cache_len, cfg):
     pad = cache_len - S
     if pad < 0:
         raise ValueError("cache_len < seq_len for linear cache")
-    ck = torch.zeros((B, cache_len) + k.shape[2:], dtype=k.dtype, device=k.device)
-    cv = torch.zeros_like(ck)
-    cp = torch.full((B, cache_len), -1, dtype=torch.int32, device=k.device)
-    ck[:, :S] = k
-    cv[:, :S] = v
-    cp[:, :S] = positions
-    return {"k": ck, "v": cv, "pos": cp}
+    # padded, as the JAX package does: a DTensor k keeps its placements (a
+    # slice assignment into a fresh replicated cache has no DTensor rule)
+    return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
+            "pos": F.pad(positions.to(torch.int32), (0, pad), value=-1)}
 
 
 # -------------------------------------------------------------- decode blocks

@@ -26,7 +26,12 @@ for n in ("repro_torch.train.optimizer", "repro_torch.train.train_step",
           "repro_torch.launch.xlaforms", "repro_torch.core.parity",
           "repro_torch.core.benchscale", "repro_torch.core.analytic",
           "repro_torch.core.counters", "repro_torch.core.searchspace",
-          "repro_torch.core.anomaly", "repro_torch.kernels.traceable"):
+          "repro_torch.core.anomaly", "repro_torch.kernels.traceable",
+          "repro_torch.core.measure_cache", "repro_torch.core.surrogate",
+          "repro_torch.core.batching", "repro_torch.core.engine",
+          "repro_torch.core.mfs", "repro_torch.core.sa", "repro_torch.core.catalog",
+          "repro_torch.examples.collie_search", "repro_torch.core.random_search",
+          "repro_torch.core.bo", "repro_torch.core.minimize"):
     assert n in names, n
 import torch.distributed as dist
 assert not dist.is_initialized()     # importing starts no process group

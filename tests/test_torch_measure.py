@@ -7,7 +7,8 @@
   sets and the deciding counter's values), so a witness shows its entry's
   kind and a control does not, as the reference's corpus replay holds them.
   The reference's kinds and ratio are also those ``parity.REFERENCE`` keeps
-  for the card, and only ``parity.REPLICATED_OPS`` may run replicated.
+  for the card, and only the ops ``parity.REPLICATED_OPS`` admits at a
+  point's class may run replicated.
 * Within a stated bound: ``perf.useful_flops_ratio`` within
   ``parity.USEFUL_RATIO_REL_BOUND`` of the reference's, except the listed
   differences of construction (``parity.USEFUL_RATIO_DIFFERENCES``).
@@ -113,6 +114,9 @@ def measured(tmp_path_factory):
         c = m.counters()
         port.append({"counters": c, "kinds": sorted(anomaly.kinds(c, policy.remat)),
                      "replicated_ops": m.hlo["replicated_ops"],
+                     "unlisted_replications": parity.unlisted_replications(
+                         m.hlo["replicated_ops"], cfg.name, policy.sharding_preset,
+                         shape.kind, policy.n_microbatch),
                      "hlo_bytes_per_dev": m.roofline["hlo_bytes_per_dev"],
                      "collective_wire_per_dev": m.roofline["collective_wire_per_dev"],
                      "trace_s": m.compile_s})
@@ -165,8 +169,8 @@ def test_corpus_point_verdict_and_useful_flops_match_reference(measured, i):
         # a listed difference keeps its recorded values (both 4 decimals)
         listed = parity.USEFUL_RATIO_DIFFERENCES[parity.point_key(p)]
         assert (round(got, 4), round(want, 4)) == listed[:2]
-    # only the listed refusals of DTensor run an op replicated
-    assert set(port["replicated_ops"]) <= set(parity.REPLICATED_OPS), port["replicated_ops"]
+    # only the refusals of DTensor listed for the point's class run an op replicated
+    assert port["unlisted_replications"] == [], port["replicated_ops"]
     # exact parts of the counter dict
     for k in ("diag.shard_fallbacks",):
         assert port["counters"][k] == ref["counters"][k]
