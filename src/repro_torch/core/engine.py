@@ -74,10 +74,10 @@ identical whether served cold, from memory, or from disk; callers that need
 the full :class:`~repro_torch.core.counters.Measurement` use
 ``measure_full``.
 
-The port runs no MoE block and no vit/encodec frontend yet: an engine over
-a space whose ``arch`` factor holds such an arch raises
-``NotImplementedError`` at construction, so that no search steers silently
-around points the port cannot trace.
+The port runs no vit/encodec frontend yet: an engine over a space whose
+``arch`` factor holds such an arch raises ``NotImplementedError`` at
+construction, so that no search steers silently around points the port
+cannot trace.  The MoE archs are measured as every other.
 """
 from __future__ import annotations
 
@@ -121,7 +121,7 @@ class _WriteBuf:
 
 
 def _check_ported(space):
-    """Raise if the space's ``arch`` factor holds an arch whose blocks the
+    """Raise if the space's ``arch`` factor holds an arch whose frontend the
     port does not run yet (an arch only in ``space.archs``, which
     ``restrict`` excludes, is never measured and passes)."""
     for name in space.factors["arch"]:
@@ -129,9 +129,9 @@ def _check_ported(space):
             tfm._check_supported(space.archs[name])
         except NotImplementedError as e:
             raise NotImplementedError(
-                f"{name} needs blocks the port does not run yet ({e}); they are "
-                "ROADMAP module queue items 3 (MoE) and 4 (frontends): restrict "
-                "the space's arch factor to ported archs") from None
+                f"{name} needs a frontend the port does not run yet ({e}); it is "
+                "ROADMAP module queue item 4 (frontends): restrict the space's "
+                "arch factor to ported archs") from None
 
 
 def _point_class(cell):

@@ -36,8 +36,11 @@
 //   call of a host-bound decode step.
 // - Four consumer warps.  Stage s always goes to warp s % 4 (the ring has a
 //   multiple of 4 stages), so a warp waits on its own stages in order, and
-//   each warp keeps its own online softmax (m, l, O) in base 2 over the
-//   tiles it takes.  bf16: S = Q K^T and O += P V with mma.sync m16n8k16
+//   each warp keeps its own online softmax (m, l, O) over the tiles it
+//   takes, m in the scores' own units: every exponent is (s - m) x
+//   log2(e)/sqrt(D), the difference taken before the scale, so that scores
+//   in the thousands (random-init mixtral's) lose no bits to the scale's
+//   rounding.  bf16: S = Q K^T and O += P V with mma.sync m16n8k16
 //   (the G <= 16 query heads padded to 16 rows; ldmatrix from the padded
 //   rows, V transposed by ldmatrix.trans; P packed to bf16 straight from the
 //   S accumulator, as the forward does) and the approximate exp2.  f32:
@@ -84,7 +87,7 @@ struct Args {
   const void* q; const void* k; const void* v; const int* pos; const int* qpos; void* o;
   int B, H, KVH, T, window, slots;   // window <= 0: none; slots per block
   long long q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, pos_sb;
-  float scale_log2;   // log2(e) / sqrt(D): scores are kept in base 2
+  float scale_log2;   // log2(e) / sqrt(D), applied to score differences
 };
 
 // The small shared-memory area after the ring and q (SMALL_BYTES).
@@ -219,8 +222,8 @@ struct Bf16Walk {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const bool vis = (mask >> (nb * 8 + 2 * (lane % 4) + e)) & 1;
-          sc[nb][e] = vis ? sc[nb][e] * scale_log2 : NEG_INF;
-          sc[nb][2 + e] = vis ? sc[nb][2 + e] * scale_log2 : NEG_INF;
+          sc[nb][e] = vis ? sc[nb][e] : NEG_INF;
+          sc[nb][2 + e] = vis ? sc[nb][2 + e] : NEG_INF;
           mx[0] = fmaxf(mx[0], sc[nb][e]);
           mx[1] = fmaxf(mx[1], sc[nb][2 + e]);
         }
@@ -231,7 +234,7 @@ struct Bf16Walk {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
         const float mn = fmaxf(m[r], mx[r]);
-        alpha[r] = hopper::ex2(m[r] - mn);
+        alpha[r] = hopper::ex2((m[r] - mn) * scale_log2);
         m[r] = mn;
         l[r] *= alpha[r];
       }
@@ -239,7 +242,7 @@ struct Bf16Walk {
       for (int nb = 0; nb < C::TILE / 8; ++nb) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          sc[nb][e] = hopper::ex2(sc[nb][e] - m[e / 2]);
+          sc[nb][e] = hopper::ex2((sc[nb][e] - m[e / 2]) * scale_log2);
           l[e / 2] += sc[nb][e];
         }
       }
@@ -321,37 +324,49 @@ struct F32Walk {
       const float* ks = reinterpret_cast<const float*>(ring + s * C::STAGE);
       const float* vs = ks + C::TILE * RW;
 
+      // each score summed in two levels: 16 columns at a time, then the
+      // D / 16 partial sums, a chain of 16 + D / 16 roundings where one of D
+      // would be (the scores of a random-init model reach the thousands)
       float sc[MAXG / NGRP];
 #pragma unroll
       for (int i = 0; i < MAXG / NGRP; ++i) sc[i] = 0.f;
       const float4* kr = reinterpret_cast<const float4*>(ks + slot * RW);
-#pragma unroll 4
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kv = kr[d4];
+#pragma unroll 2
+      for (int d16 = 0; d16 < D / 16; ++d16) {
+        float part[MAXG / NGRP];
 #pragma unroll
-        for (int i = 0; i < MAXG / NGRP; ++i) {
-          if (grp + NGRP * i < G) {
-            const float4 qv = reinterpret_cast<const float4*>(q + (grp + NGRP * i) * D)[d4];
-            sc[i] = fmaf(qv.x, kv.x, sc[i]);
-            sc[i] = fmaf(qv.y, kv.y, sc[i]);
-            sc[i] = fmaf(qv.z, kv.z, sc[i]);
-            sc[i] = fmaf(qv.w, kv.w, sc[i]);
+        for (int i = 0; i < MAXG / NGRP; ++i) part[i] = 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 kv = kr[4 * d16 + u];
+#pragma unroll
+          for (int i = 0; i < MAXG / NGRP; ++i) {
+            if (grp + NGRP * i < G) {
+              const float4 qv =
+                  reinterpret_cast<const float4*>(q + (grp + NGRP * i) * D)[4 * d16 + u];
+              part[i] = fmaf(qv.x, kv.x, part[i]);
+              part[i] = fmaf(qv.y, kv.y, part[i]);
+              part[i] = fmaf(qv.z, kv.z, part[i]);
+              part[i] = fmaf(qv.w, kv.w, part[i]);
+            }
           }
         }
+#pragma unroll
+        for (int i = 0; i < MAXG / NGRP; ++i) sc[i] += part[i];
       }
       const bool vis = (mask >> slot) & 1;
       float alpha[MAXG / NGRP];
 #pragma unroll
       for (int i = 0; i < MAXG / NGRP; ++i) {
-        sc[i] = vis ? sc[i] * scale_log2 : NEG_INF;
+        sc[i] = vis ? sc[i] : NEG_INF;
         float mx = sc[i];
 #pragma unroll
         for (int off = C::TILE / 2; off > 0; off >>= 1)
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, off));
         const float mn = fmaxf(m[i], mx);
-        alpha[i] = exp2f(m[i] - mn);
+        alpha[i] = exp2f((m[i] - mn) * scale_log2);
         m[i] = mn;
-        sc[i] = exp2f(sc[i] - mn);
+        sc[i] = exp2f((sc[i] - mn) * scale_log2);
         l[i] = l[i] * alpha[i] + sc[i];
       }
 #pragma unroll
@@ -565,7 +580,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_decode_kernel(const Args a) 
       for (int j = 0; j < NC; ++j) mx = fmaxf(mx, sm.wm[j][g]);
       float lsum = 0.f;
       for (int j = 0; j < NC; ++j) {
-        const float wt = exp2f(sm.wm[j][g] - mx);
+        const float wt = exp2f((sm.wm[j][g] - mx) * a.scale_log2);
         sm.ww[j][g] = wt;
         lsum += sm.wl[j][g] * wt;
       }
@@ -618,7 +633,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_decode_kernel(const Args a) 
 #pragma unroll
       for (int j = 0; j < MAX_CLUSTER; ++j) {
         if (j < nrank) {
-          const float w = exp2f(mg.m[j][g] - M);
+          const float w = exp2f((mg.m[j][g] - M) * a.scale_log2);
           L = fmaf(mg.l[j][g], w, L);
           acc = fmaf(mg.share[j * per + i], w, acc);
         }

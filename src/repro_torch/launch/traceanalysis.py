@@ -74,6 +74,7 @@ _FUNCTIONAL = {"all_gather_into_tensor": "all-gather",
                "reduce_scatter_tensor": "reduce-scatter",
                "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
                "all_to_all_single": "all-to-all",
+               "shard_dim_alltoall": "all-to-all",      # DTensor's own op
                "permute_tensor": "collective-permute"}
 # ring-model wire-bytes factor given group size P, as f(P) applied to operand
 _WIRE_FACTOR = {
@@ -192,7 +193,7 @@ class Recorder(TorchDispatchMode):
                 if src.shape == outs[0].shape and src.numel() > 1 \
                         and src.stride() != outs[0].stride():
                     rec["transpose"] = True
-        elif name.startswith("_c10d_functional."):
+        elif name.startswith(("_c10d_functional.", "_dtensor.")):
             kind = _FUNCTIONAL.get(name.split(".")[1])
             if kind is not None:
                 rec["kind"] = "collective"
@@ -313,6 +314,15 @@ def _replicating(propagate, recorder):
     return run
 
 
+def _alltoall_as_on_cuda(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's all-to-all of a shard from one dim to another, as a ``cuda``
+    mesh runs it (one ``_dtensor.shard_dim_alltoall``) on every mesh: a
+    ``cpu`` mesh would all-gather and chunk instead (gloo has no all-to-all),
+    which a fake trace does not need."""
+    return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
+                                                 mesh.get_group(mesh_dim).group_name)
+
+
 @contextlib.contextmanager
 def dtensor_hooks(recorder: Recorder):
     """While a step is traced on DTensors:
@@ -322,9 +332,12 @@ def dtensor_hooks(recorder: Recorder):
       ``recorder``: it is not part of any device's program;
     * an op DTensor refuses for an uneven split, or has no strategy for, is
       run replicated and counted (``_replicating``); any other refusal
-      raises.
+      raises;
+    * a shard moved from one dim to another is one all-to-all on a ``cpu``
+      mesh as on a ``cuda`` one (``_alltoall_as_on_cuda``), so the CPU's
+      counters are the card's.
     """
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, placement_types
 
     @contextlib.contextmanager
     def mute():
@@ -341,13 +354,16 @@ def dtensor_hooks(recorder: Recorder):
                            "its shape inference cannot be told from the devices' ops")
     fallback_names = [n for n in ("propagate_op_sharding_non_cached", "propagate_op_sharding")
                       if hasattr(prop, n)]
+    alltoall = placement_types.shard_dim_alltoall
     try:
         for n in prop_names:
             setattr(prop, n, _wrap(getattr(prop, n), mute))
         for n in fallback_names:
             setattr(prop, n, _replicating(getattr(prop, n), recorder))
+        placement_types.shard_dim_alltoall = _alltoall_as_on_cuda
         yield
     finally:
+        placement_types.shard_dim_alltoall = alltoall
         for n in prop_names + fallback_names:
             if n in vars(prop):
                 delattr(prop, n)      # the instance attribute; the class's returns

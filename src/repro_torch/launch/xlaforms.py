@@ -21,19 +21,31 @@ into the forms the reference's program has:
   partial-sum operands it lets through: XLA never carries one into a dot);
 * ``log_softmax`` of a DTensor sharded along the reduced dim becomes
   ``x - max - log(sum(exp(x - max)))``, whose reductions DTensor partitions
-  (partial sums, all-reduced);
+  (partial results, all-reduced where they are made);
 * ``gather`` of one element along a sharded dim (the label's log-prob)
   becomes a masked sum over that dim, a partial sum that is all-reduced
   (DTensor's masked partial loses its mask through the view that follows);
+  a gather of many along a sharded dim (MoE's combine) all-gathers that dim
+  first and keeps the other dims' shards;
 * ``table[idx]`` of a 2-D table and an integer index becomes ``embedding``
   (XLA's gather; DTensor masks a vocab-sharded table);
 * ``pad`` of a DTensor becomes a concatenation of filled slices (DTensor's
-  ``constant_pad_nd`` fails inside a redistribution in some releases).
+  ``constant_pad_nd`` fails inside a redistribution in some releases);
+* GQA's grouping of H query heads as (KV, G), where the mesh splits the
+  heads unevenly over the KV groups (qwen2's 12 heads over 2 KV heads on 4
+  ranks), keeps each head its own group (``attention.group_heads``), and
+  the K/V heads are repeated to the query heads (``attention.kv_for``):
+  attention stays sharded on the heads, as XLA tiles (KV, G) jointly.  A
+  single decode token is gathered instead, and attends sharded on the
+  cache's sequence.
 
 ``register_strategies`` adds ``dot_general``'s rule, and a rule for
 ``index_put`` that models GSPMD where DTensor's own differs or fails
 between releases: a scatter into a dim that is sharded, each shard applying
-the updates that fall in its range, as XLA partitions a scatter.
+the updates that fall in its range, as XLA partitions a scatter.  It also
+gives ``gather``, ``scatter_add`` and the stable ``sort`` of MoE's batched
+dispatch one rule on every release: local wherever a dim other than the
+one gathered, scattered or sorted is sharded alike in every operand.
 
 Nothing here runs outside a trace: serving and training call torch's ops.
 """
@@ -48,6 +60,7 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 from torch.utils.flop_counter import register_flop_formula
 
+from ..models import attention as attn
 from ..models import transformer as tfm
 
 # ------------------------------------------------------------ dot_general
@@ -95,11 +108,40 @@ def _(a, b, rank, eqn):
     return a.new_empty(_out_shape(eqn, a.shape, b.shape))
 
 
+def _sharded_like(primal, ep, operands):
+    """``operands`` ((tensor, letters) pairs of a gradient's product),
+    each replicated mesh dim of one of them that ``primal`` (letters
+    ``ep``) shards along a letter the operand holds sharded there too: a
+    local slice, so that the gradient is made in its primal's placement, as
+    XLA's partitioner makes it, and not whole on every rank of that dim."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(primal, DTensor):
+        return [t for t, _ in operands]
+    out = []
+    for t, et in operands:
+        if not isinstance(t, DTensor):
+            out.append(t)
+            continue
+        pl = list(t.placements)
+        for i, p in enumerate(primal.placements):
+            j = et.find(ep[p.dim]) if p.is_shard() else -1
+            if j >= 0 and pl[i].is_replicate() and not any(q.is_shard(j) for q in pl) \
+                    and t.shape[j] % t.device_mesh.size(i) == 0:
+                pl[i] = Shard(j)
+        out.append(t.redistribute(t.device_mesh, pl) if pl != list(t.placements) else t)
+    return out
+
+
 def _dot_backward(ctx, g):
     a, b = ctx.saved_tensors
     ea, eb, eo = _parse(ctx.eqn)
-    ga = dot_general(g, b, f"{eo},{eb}->{ea}") if ctx.needs_input_grad[0] else None
-    gb = dot_general(g, a, f"{eo},{ea}->{eb}") if ctx.needs_input_grad[1] else None
+    ga = gb = None
+    if ctx.needs_input_grad[0]:
+        g_, b_ = _sharded_like(a, ea, [(g, eo), (b, eb)])
+        ga = dot_general(g_, b_, f"{eo},{eb}->{ea}")
+    if ctx.needs_input_grad[1]:
+        g_, a_ = _sharded_like(b, eb, [(g, eo), (a, ea)])
+        gb = dot_general(g_, a_, f"{eo},{ea}->{eb}")
     return ga, gb, None, None
 
 
@@ -238,15 +280,26 @@ def _log_softmax(x, dim=None, dtype=None, *args, **kwargs):
         return NotImplemented
     if dtype is not None:
         x = x.to(dtype)
-    m = x.detach().amax(dim=dim, keepdim=True)
-    return x - m - torch.log(torch.exp(x - m).sum(dim=dim, keepdim=True))
+    # each reduction's partial result all-reduced where it is made, as XLA's
+    # partitioner does (a torch release's DTensor may reduce-scatter it onto
+    # another dim instead, and the whole loss follows that dim)
+    m = _summed(x.detach().amax(dim=dim, keepdim=True))
+    return x - m - torch.log(_summed(torch.exp(x - m).sum(dim=dim, keepdim=True)))
 
 
 def _gather(x, dim, index, *, sparse_grad=False, out=None):
-    if out is not None or not _dtensor(x) or not _sharded_on(x, dim) \
-            or index.shape[dim % x.dim()] != 1:
+    if out is not None or not _dtensor(x) or not _sharded_on(x, dim):
         return NotImplemented
     dim = dim % x.dim()
+    if index.shape[dim] != 1:
+        # a gather of many rows along a sharded dim (MoE's combine): the
+        # operand is all-gathered on that dim, its other dims keep their
+        # shards (DTensor would move a batch dim's shard onto the gathered
+        # dim's mesh axes instead, which XLA does not do)
+        from torch.distributed.tensor import Replicate
+        x = x.redistribute(x.device_mesh, [Replicate() if p.is_shard(dim) else p
+                                           for p in x.placements])
+        return torch.gather(x, dim, index)
     pos = torch.arange(x.shape[dim], device=x.device)
     pos = pos.view([-1 if d == dim else 1 for d in range(x.dim())])
     return torch.where(pos == index, x, torch.zeros((), dtype=x.dtype, device=x.device)) \
@@ -284,12 +337,37 @@ def _pad(x, pad, mode="constant", value=None):
     return x
 
 
+def _group_heads(q, n_kv):
+    """The query heads of a DTensor q (B,S,H,dh) whose mesh splits H over
+    more ranks than there are KV heads, unevenly for a (KV, G) view: as
+    (B,S,H,1,dh), each head its own group, sharded as q is (XLA tiles (KV, G)
+    jointly, H/n heads a rank; DTensor cannot place that view); a single
+    decode token is gathered and grouped as (KV, G)."""
+    if not _dtensor(q):
+        return NotImplemented
+    n = 1
+    for size, p in zip(q.device_mesh.shape, q.placements):
+        if p.is_shard(2):
+            n *= size
+    if n == 1 or n_kv % n == 0:
+        return NotImplemented
+    if q.shape[1] == 1:
+        # one decode token: gathered whole (a few KB) and grouped as (KV, G),
+        # so its attention runs sharded on the cache's sequence
+        from torch.distributed.tensor import Replicate
+        q = q.redistribute(q.device_mesh, [Replicate() if p.is_shard(2) else p
+                                           for p in q.placements])
+        return attn.group_heads(q, n_kv)
+    return q.unsqueeze(3)
+
+
 _REWRITES = {
     torch.matmul: _matmul, torch.Tensor.matmul: _matmul, torch.Tensor.__matmul__: _matmul,
     torch.einsum: _einsum,
     torch.log_softmax: _log_softmax, torch.Tensor.log_softmax: _log_softmax,
     torch.gather: _gather, torch.Tensor.gather: _gather,
     torch.Tensor.__getitem__: _getitem, F.pad: _pad,
+    attn.group_heads: _group_heads,
 }
 
 
@@ -334,6 +412,44 @@ def _index_put_strategies(self, indices, values, *args):
     return out
 
 
+def _gather_strategies(x, dim, index, *args, **kwargs):
+    """([out], [self, index]) of ``gather``: replicated; sharded on a dim
+    other than ``dim`` where the operand and the index agree in size (each
+    shard gathers its own rows, as MoE's batched dispatch does over its
+    groups); or the index sharded on ``dim`` with the operand replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    dim = dim % len(x.shape)
+    out = [([R], [R, R]), ([Shard(dim)], [R, Shard(dim)])]
+    if len(x.shape) == len(index.shape):
+        out += [([Shard(d)], [Shard(d), Shard(d)]) for d in range(len(x.shape))
+                if d != dim and x.shape[d] == index.shape[d]]
+    return out
+
+
+def _scatter_add_strategies(x, dim, index, src, *args):
+    """([out], [self, index, src]) of ``scatter_add``: replicated, or sharded
+    on a dim other than ``dim`` where all three agree in size."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    dim = dim % len(x.shape)
+    out = [([R], [R, R, R])]
+    if len(x.shape) == len(index.shape) == len(src.shape):
+        out += [([Shard(d)], [Shard(d)] * 3) for d in range(len(x.shape))
+                if d != dim and x.shape[d] == index.shape[d] == src.shape[d]]
+    return out
+
+
+def _sort_strategies(x, *args, dim=-1, **kwargs):
+    """([values, indices], [self]) of a stable sort: replicated, or sharded
+    on a dim other than the sorted one."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    dim = dim % len(x.shape)
+    return [([R, R], [R])] + [([Shard(d), Shard(d)], [Shard(d)])
+                              for d in range(len(x.shape)) if d != dim]
+
+
 @functools.lru_cache(maxsize=None)
 def register_strategies():
     """Register the DTensor rules of this module (once per process; they
@@ -343,10 +459,15 @@ def register_strategies():
     register_sharding(torch.ops.repro_trace.dot_general.default)(_dot_strategies)
     puts = [aten.index_put.default, aten.index_put_.default, aten._index_put_impl_.default]
     register_sharding(puts)(_index_put_strategies)
+    # MoE's batched dispatch and combine (torch releases differ in their own
+    # rules for these, or have none)
+    register_sharding(aten.gather.default)(_gather_strategies)
+    register_sharding(aten.scatter_add.default)(_scatter_add_strategies)
+    register_sharding(aten.sort.stable)(_sort_strategies)
     # a release that keeps per-mesh-dim rules apart looks them up first, so
     # the registration above overrides its own rule only once that is gone
     from torch.distributed.tensor import DTensor
     single = getattr(DTensor._op_dispatcher.sharding_propagator,
                      "op_single_dim_strategy_funcs", {})
-    for op in puts:
+    for op in puts + [aten.gather.default, aten.scatter_add.default, aten.sort.stable]:
         single.pop(op, None)

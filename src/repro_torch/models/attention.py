@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from ..kernels.decode_attention import flash_decode
 from ..kernels.flash_attention import flash_attention
@@ -55,9 +56,37 @@ def qkv_proj(p, x, n_heads, n_kv, d_head, positions, rope_theta, use_rope=True):
     if use_rope:
         q = apply_rope(q, positions[:, :, None], rope_theta)
         k = apply_rope(k, positions[:, :, None], rope_theta)
-    B, S = x.shape[:2]
-    q = q.reshape(B, S, n_kv, n_heads // n_kv, d_head)
-    return q, k, v
+    return group_heads(q, n_kv), k, v
+
+
+def group_heads(q, n_kv):
+    """(B,S,H,dh) query heads as (B,S,KV,G,dh): G heads for each KV head.
+
+    While a cell is traced on a mesh that splits the H heads unevenly over
+    the KV groups, the trace's forms (``launch/xlaforms.py``) give
+    (B,S,H,1,dh) instead, one group a query head; ``kv_for`` then repeats
+    each K/V head for its query heads."""
+    if has_torch_function_unary(q):
+        return handle_torch_function(group_heads, (q,), q, n_kv)
+    B, S, H, dh = q.shape
+    return q.reshape(B, S, n_kv, H // n_kv, dh)
+
+
+def kv_for(q, k):
+    """k or v (B,T,KV,dh) for the groups of q (B,S,KV',G,dh): ``k`` itself,
+    or, where q has one group a query head (KV' = H, the trace's form of an
+    uneven split), each KV head repeated for its G query heads.  The repeat
+    is a view where no gradient flows, and a product with a 0/1 matrix where
+    one does (the view's gradient would split the sharded heads unevenly)."""
+    B, T, n_kv, dh = k.shape
+    n_q = q.shape[2]
+    if n_q == n_kv:
+        return k
+    if not (torch.is_grad_enabled() and k.requires_grad):
+        return k[:, :, :, None].expand(B, T, n_kv, n_q // n_kv, dh).reshape(B, T, n_q, dh)
+    heads = torch.arange(n_q, device=k.device) // (n_q // n_kv)
+    sel = (heads == torch.arange(n_kv, device=k.device)[:, None]).to(k.dtype)
+    return torch.einsum("btkd,kh->bthd", k, sel)
 
 
 def plain_attention(q, k, v, positions_q, positions_kv, window=None):
@@ -219,6 +248,7 @@ def pallas_attention(q, k, v, window=None):
 def attend(q, k, v, positions, impl, window=None, block=None):
     """Causal self-attention of (B,S,KV,G,dh) q over (B,S,KV,dh) k/v by the
     path ``impl`` names; the one place that choice is made."""
+    k, v = kv_for(q, k), kv_for(q, v)
     if impl == "pallas":
         return pallas_attention(q, k, v, window)
     if impl == "local" and window is not None and q.shape[1] > 2 * window:

@@ -6,8 +6,10 @@ Layers are grouped into repeating *pattern units* as in the JAX package
 state are stacked along a leading ``layers`` dim and the port walks the units
 in a Python loop (PyTorch runs eagerly, so ``scan_layers`` changes nothing
 here).  Under autograd each unit is rematerialised as ``RunPolicy.remat``
-says (``_remat_wrap``).  MoE and the vit/encodec frontends raise
-``NotImplementedError`` naming their ROADMAP item.
+says (``_remat_wrap``).  An attention block of an arch with experts has a
+routed MoE MLP (``models/moe.py``), whose router statistics are the block's
+aux output.  The vit/encodec frontends raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import rglru as rg
 from . import rwkv6 as rwkv
 from .layers import (apply_glu_mlp, apply_norm, apply_plain_mlp, embed_lookup,
@@ -32,7 +35,6 @@ from ..configs.base import ModelConfig, RunPolicy
 from ..launch.sharding import maybe_constrain
 
 _LATER = {
-    "moe": "MoE blocks: ROADMAP module queue, MoE",
     "vit": "vit frontend: ROADMAP module queue, frontends",
     "encodec": "encodec frontend: ROADMAP module queue, frontends",
 }
@@ -43,8 +45,6 @@ def _check_supported(cfg: ModelConfig):
     for bt in cfg.block_pattern:
         if bt not in BLOCK_TYPES:
             raise ValueError(bt)
-    if cfg.n_experts:
-        raise NotImplementedError(_LATER["moe"])
     if cfg.frontend:
         raise NotImplementedError(_LATER[cfg.frontend])
 
@@ -67,7 +67,7 @@ def block_specs(cfg: ModelConfig, bt: str):
                 "ln2": norm_specs(cfg.d_model, cfg.norm),
                 "cm": rwkv.channelmix_specs(cfg.d_model, cfg.d_ff)}
     if cfg.n_experts:
-        mlp = moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts)
+        mlp = moe_mod.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts)
     elif cfg.act == "gelu" and cfg.norm == "layernorm":
         mlp = plain_mlp_specs(cfg.d_model, cfg.d_ff)   # musicgen-style
     else:
@@ -84,18 +84,6 @@ def n_units_tail(cfg: ModelConfig):
     return cfg.n_layers // plen, cfg.n_layers % plen
 
 
-def moe_specs(d: int, f: int, n_experts: int):
-    """The MoE block's parameters, as the JAX package's ``moe_specs``: their
-    shapes count in the analytic floors; the block itself waits for its
-    ROADMAP item."""
-    return {
-        "router": ParamSpec((d, n_experts), ("embed", "expert")),
-        "wi_gate": ParamSpec((n_experts, d, f), ("expert", "embed", "mlp")),
-        "wi_up": ParamSpec((n_experts, d, f), ("expert", "embed", "mlp")),
-        "wo": ParamSpec((n_experts, f, d), ("expert", "mlp", "embed")),
-    }
-
-
 def _table_specs(cfg: ModelConfig):
     if cfg.frontend == "encodec":
         return {"table": ParamSpec((cfg.n_codebooks, cfg.vocab_size, cfg.d_model),
@@ -105,8 +93,8 @@ def _table_specs(cfg: ModelConfig):
 
 def build_specs(cfg: ModelConfig, runnable: bool = True):
     """The parameter specs of ``cfg``.  ``runnable=False`` also gives those of
-    the archs whose blocks the port does not run yet (MoE, the vit and
-    encodec frontends), for counting parameters; by default they raise."""
+    the archs whose frontends the port does not run yet (vit and encodec),
+    for counting parameters; by default they raise."""
     if runnable:
         _check_supported(cfg)
     n_units, tail = n_units_tail(cfg)
@@ -193,10 +181,17 @@ def _resolve_attn_impl(cfg, policy, S):
     return "plain"
 
 
-def _mlp(p, x, cfg):
+def _mlp(p, x, cfg, capacity_factor):
+    """The block's MLP: (out, aux (2,) f32), aux the MoE router's
+    [lb_loss, dropped_frac] (zeros without experts)."""
+    if cfg.n_experts:
+        m, a = moe_mod.apply_moe(p, x, top_k=cfg.top_k, act=cfg.act,
+                                 capacity_factor=capacity_factor)
+        return m, torch.stack([a["lb_loss"], a["dropped_frac"]])
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     if "wi" in p:
-        return apply_plain_mlp(p, x, cfg.act)
-    return apply_glu_mlp(p, x, cfg.act)
+        return apply_plain_mlp(p, x, cfg.act), aux
+    return apply_glu_mlp(p, x, cfg.act), aux
 
 
 def apply_block_full(bt, p, x, positions, cfg: ModelConfig, policy: RunPolicy,
@@ -218,7 +213,6 @@ def _block_full(bt, p, x, positions, cfg, policy, cache_len):
         return _rec_block_full(p, x, cfg, policy, cache_len)
     if bt == "rwkv":
         return _rwkv_block_full(p, x, cfg, policy, cache_len)
-    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     state = None
     S = x.shape[1]
     h = apply_norm(p["ln1"], x, cfg.norm)
@@ -235,8 +229,8 @@ def _block_full(bt, p, x, positions, cfg, policy, cache_len):
         state = _cache_from_kv(k, v, positions, cache_len, cfg)
     x = x + a
     h2 = apply_norm(p["ln2"], x, cfg.norm)
-    x = x + _mlp(p["mlp"], h2, cfg)
-    return x, aux, state
+    m, aux = _mlp(p["mlp"], h2, cfg, policy.capacity_factor)
+    return x + m, aux, state
 
 
 def _rec_block_full(p, x, cfg, policy, cache_len):
@@ -314,6 +308,7 @@ def apply_block_decode(bt, p, state, x, position, cfg: ModelConfig,
         h2 = apply_norm(p["ln2"], x, cfg.norm)
         return x + rwkv.decode_channelmix(p["cm"], state, h2), state
     use_kernel = policy is not None and policy.use_pallas
+    cf = policy.capacity_factor if policy is not None else 1.25
     h = apply_norm(p["ln1"], x, cfg.norm)
     o, new_cache = attn.decode_attention(
         p["attn"], state, h, position, n_heads=cfg.n_heads,
@@ -321,7 +316,7 @@ def apply_block_decode(bt, p, state, x, position, cfg: ModelConfig,
         window=cfg.window, use_rope=cfg.use_rope, use_kernel=use_kernel)
     x = x + attn.out_proj(p["attn"], o)
     h2 = apply_norm(p["ln2"], x, cfg.norm)
-    return x + _mlp(p["mlp"], h2, cfg), new_cache
+    return x + _mlp(p["mlp"], h2, cfg, cf)[0], new_cache
 
 
 # ------------------------------------------------------------- state builders

@@ -4,9 +4,10 @@ compile on the CPU with 32 host devices) at search points, printed as JSON.
   python tests/reference_counters.py POINTS.json
       POINTS.json holds [points, archs, restrict]; prints the list of their
       counter dicts (``perf.*``/``diag.*``) on one line.
-  python tests/reference_counters.py --pairs [--shard i/n] --out PATH
+  python tests/reference_counters.py --pairs [--moe] [--shard i/n] --out PATH
       measures the points of benchmarks/results/bench_fidelity_pairs.json
-      that need no MoE (every n-th from the i-th) and writes
+      that need no MoE (``--moe``: those that do; every n-th from the i-th)
+      and writes
       {pair index: counters} to PATH, which
       ``python -m repro_torch.core.parity --reference PATH ...`` reads.
 
@@ -45,6 +46,7 @@ def main(argv=None):
     ap.add_argument("points", nargs="?", help="JSON file: [points, archs, restrict]")
     ap.add_argument("--pairs", action="store_true",
                     help="measure the pairs file's points that need no MoE")
+    ap.add_argument("--moe", action="store_true", help="--pairs: the points that need MoE")
     ap.add_argument("--shard", default="0/1", help="every n-th pairs point from the i-th")
     ap.add_argument("--out", default=None, help="where --pairs writes its JSON")
     a = ap.parse_args(argv)
@@ -56,8 +58,9 @@ def main(argv=None):
         print(json.dumps(measure(points, archs, restrict)))
         return
     data = json.loads((ROOT / "benchmarks" / "results" / "bench_fidelity_pairs.json").read_text())
-    archs = [x for x in data["archs"] if x not in MOE]
-    rows = [(i, p) for i, (p, m) in enumerate(data["pairs"]) if m and p["arch"] in archs]
+    archs = [x for x in data["archs"] if a.moe or x not in MOE]
+    rows = [(i, p) for i, (p, m) in enumerate(data["pairs"])
+            if m and p["arch"] in archs and (p["arch"] in MOE) == a.moe]
     i0, n = (int(x) for x in a.shard.split("/"))
     rows = rows[i0::n]
     got = measure([p for _, p in rows], archs, data["restrict"])

@@ -114,6 +114,40 @@ def test_cuda_flash_decode_matches_plain(dt, window, H, KVH, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 128])
+def test_cuda_flash_decode_f32_at_large_scores(D):
+    """Scores in the thousands (after the 1/sqrt(D) scale), as random-init
+    mixtral-8x7b's are: there f32 rounding of a score moves its weight by
+    ~1e-4 in any f32 evaluation, so the kernel is held to the same attention
+    in f64, no further from it than twice the plain f32 version (the kernel
+    takes each score's difference to the running max before the scale)."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    B, H, KVH, T = 2, 32, 8, 3000
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).to(dev)
+    # every score near c^2 sqrt(D) (over 1000), spread by ~2 across the keys,
+    # so that many keys share the weight
+    c = 15.0
+    q = c + mk(B, H, D)
+    k = (c + (2.0 / c) * mk(B, T, KVH, D)).permute(0, 2, 1, 3)
+    v = (100.0 * mk(B, T, KVH, D)).permute(0, 2, 1, 3)
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T).contiguous()
+    qpos = torch.tensor([T - 1, T // 2], dtype=torch.int32, device=dev)
+    o = flash_decode(q, k, v, pos, qpos)
+    r = ref.flash_decode_ref(q, k, v, pos, qpos)
+    G = H // KVH
+    s = torch.einsum("bkgd,bktd->bkgt", q.double().reshape(B, KVH, G, D),
+                     k.double()) / D ** 0.5
+    s = torch.where((pos <= qpos[:, None])[:, None, None], s, -1e300)
+    exact = torch.einsum("bkgt,bktd->bkgd", torch.softmax(s, -1), v.double()).reshape(B, H, D)
+    torch.cuda.synchronize()
+    assert s.abs().max().item() > 1000
+    scale = exact.abs().max().item()
+    err, plain = ((x.double() - exact).abs().max().item() / scale for x in (o, r))
+    assert err <= 2.0 * plain, (err, plain)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("D", [16, 32, 128, 256])
 def test_cuda_flash_decode_skips_invisible_tiles_and_empty_lanes(dt, D):

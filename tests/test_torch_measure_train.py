@@ -4,7 +4,9 @@ each sharding preset with remat none, dots and full.
 
 Within ``parity.USEFUL_RATIO_REL_BOUND`` of the reference's, except the
 listed differences of construction (``parity.USEFUL_RATIO_DIFFERENCES``,
-each with both values and its cause).  The bytes and wire bytes per device
+each with both values and its cause), and with no op run replicated: under
+tp and ep the 12 query heads over 2 KV heads on 4 model ranks stay sharded
+(``xlaforms._group_heads``).  The bytes and wire bytes per device
 are printed beside the reference's, not gated.  The reference measures in a
 subprocess with 32 host devices; the port in-process, on the fake default
 process group that the first trace starts (it stays for the worker's life,
@@ -70,6 +72,7 @@ def measured(tmp_path_factory):
         cfg, shape, policy, mk = space.to_run(space.normalize(p))
         m = measure_cell(build_cell(cfg, shape, policy, meshes[mk]), device="cpu")
         port.append({"useful": m.perf["useful_flops_ratio"],
+                     "replicated_ops": m.hlo["replicated_ops"],
                      "hlo_bytes_per_dev": m.roofline["hlo_bytes_per_dev"],
                      "collective_wire_per_dev": m.roofline["collective_wire_per_dev"],
                      "trace_s": m.compile_s})
@@ -93,3 +96,10 @@ def test_train_cell_useful_flops_ratio_within_bound(measured, i):
             parity.USEFUL_RATIO_REL_BOUND * ref["useful"], (port["useful"], ref["useful"])
     else:
         assert (round(port["useful"], 4), round(ref["useful"], 4)) == listed[:2]
+
+
+@pytest.mark.parametrize("i", range(len(POINTS)),
+                         ids=[f"{p['preset']}-{p['remat']}" for p in POINTS])
+def test_train_cell_runs_no_op_replicated(measured, i):
+    port, _ = measured[i]
+    assert port["replicated_ops"] == {}, (POINTS[i]["preset"], port["replicated_ops"])
