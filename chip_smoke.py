@@ -38,6 +38,16 @@ Phases (any failure exits non-zero and prints no result line):
               holding 513 tokens) within TOL; a line each of ms, bound,
               SDPA's time, registers and spills, and the card's name and
               power limit.
+3b'. kernels_d64 — the forward (bf16, f32), dq and dk/dv at head dim 64
+              against their plain versions at internvl2-1b's multimodal
+              prefill (14 query heads over 2 KV heads, G = 7, 1256
+              positions), internvl2's training microbatch (G = 7, S = 4096)
+              and musicgen-medium's (24 heads over 24, G = 1, S = 4096) at
+              the kernels phase's tolerances; two runs of dq and of dk/dv
+              at each training shape must give the same bits; flash-decode
+              (bf16, f32) at 4 lanes of a 4096-slot cache with both archs'
+              heads; a line each of ms, bound, SDPA's time, registers and
+              spills, and the card's name and power limit.
 3c. bench_step — qwen2-1.5b-bench (the search's own config) and
               mixtral-8x7b-bench (8 experts top-2, window 64: the windowed
               head-dim-32 kernels) on one card: one train_s step's
@@ -61,6 +71,15 @@ Phases (any failure exits non-zero and prints no result line):
               qwen2-1.5b at train_4k on the 16x16 production mesh (useful
               ratio within 10 % of the CPU trace's, no unlisted replicated
               op; counters and trace seconds printed).
+3d'. measure frontends — ``chip_smoke.py --measure-frontends``, a third
+              process beside the measure phase and the corpus replay: bench
+              points of internvl2-1b and musicgen-medium (train_s under the
+              four presets, prefill_s and decode_s under fsdp and tp) and
+              compressed multi-mesh train points (internvl2 int8 under dp,
+              where the reference measures; bf16 under tp, where its XLA
+              aborts), each held to ``core/parity.py`` (``POINT_REFERENCE``,
+              ``POINT_KIND_DIFFERENCES``, ``REFERENCE_ABORTS``) as the
+              corpus points are.
 3e. corpus — the port's replay of the 8 committed corpus entries,
               ``python -m repro_torch.core.corpus replay --parity`` on fake
               cuda tensors in a process of its own, run on the host beside
@@ -135,9 +154,35 @@ Phases (any failure exits non-zero and prints no result line):
               logits of the longest request, kernels on against the plain
               versions (f32 within 1e-3 of the largest logit; bf16, the
               loose check).
-9. report   — each phase's seconds, one JSON line of kernels (the head-dim-32
-              rows under ``d32``), the nvidia-smi line, and the result line
-              ``{"ok": true, "device": {...}}``.
+9. serve internvl2-1b — at full published width (24 layers, 14 query
+              heads over 2 KV heads of 64), random weights from seed 0,
+              kernels on: ServingEngine(n_slots=4, cache_len=4096,
+              temperature=0) over 8 text requests of 32 new tokens, prompts
+              64-3000 (the engine sends only tokens, as the JAX package's),
+              as ``serve_full_width`` does for the recurrent archs, and
+              teacher-forced logits of the longest request; then one
+              multimodal request through ``make_prefill_step`` (256 patch
+              embeddings before a 1000-token prompt) and 8 greedy decode
+              steps: exact launches (24 forward, 24 flash-decode a step),
+              ms, the kernels on the model's own tensors, teacher-forced
+              logits (f32 within 1e-3 of the largest logit; bf16 the loose
+              check).
+10. serve musicgen-medium — at full published width (48 layers, 24 heads
+              of 64, 4 codebooks of 2048), through ``make_prefill_step`` and
+              ``make_decode_step`` (the engine refuses encodec, as the JAX
+              package's): a 4-lane prefill of 1500 frames and 32 greedy
+              decode steps of (4, 1, 4) tokens with exact launches (48 a
+              prefill, 48 a step), ms, frames/s, peak memory, profiles, the
+              kernels on the model's own tensors and teacher-forced logits.
+11. train internvl2-1b, train musicgen-medium — phase 5's cell for each
+              (remat "dots", 2 microbatches, adamw, seq 4096 (internvl2: 256
+              patch positions and 3840 text tokens), global batch 2, 1 + 3
+              steps): exact launches, the in-model backward check, and one
+              f32 step's gradients, kernels on against off, leaf by leaf (the
+              projector and the codebook tables among them).
+12. report  — each phase's seconds, one JSON line of kernels (the head-dim-32
+              and head-dim-64 rows under ``d32`` and ``d64``), the nvidia-smi
+              line, and the result line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --step-times [SRC]`` times qwen2-1.5b's serving and
 train steps with ``repro_torch`` imported from SRC (``step_times_main``), so
@@ -1116,33 +1161,10 @@ def serve(dev):
     del eng
     req = max(done, key=lambda r: len(r.prompt))
     params32 = api.init(cfg, seed=0, device=dev)
-    runs = {
-        "kernels bf16": (cparams, policy),
-        "plain bf16": (cparams, RunPolicy(use_pallas=False)),
-        "kernels f32": (params32, RunPolicy(dtype="f32", use_pallas=True)),
-        "plain f32": (params32, RunPolicy(dtype="f32", use_pallas=False)),
-    }
     out = {name: teacher_forced(api, cfg, p, pol, req, dev)
-           for name, (p, pol) in runs.items()}
-    for name, x in out.items():
-        if x.shape != (9, 1, cfg.vocab_size) or not torch.isfinite(x).all():
-            fail(f"{name}: logits of shape {tuple(x.shape)} or not finite")
-    ref32 = out["plain f32"]
-    scale = max(1.0, ref32.abs().max().item())
-    dist = {name: (x - ref32).abs().max().item() for name, x in out.items()}
-    agree = {name: (x.argmax(-1) == ref32.argmax(-1)).float().mean().item()
-             for name, x in out.items()}
-    print(f"serve teacher-forced (rid {req.rid}, prompt {len(req.prompt)}, prefill + 8 "
-          f"decode steps): max|logit| {scale:.4f}; max|logit - plain f32| "
-          f"{ {k: round(v, 6) for k, v in dist.items()} }; argmax agreement with plain "
-          f"f32 { {k: round(v, 3) for k, v in agree.items()} }", flush=True)
-    if dist["kernels f32"] > F32_LOGIT_TOL * scale:
-        fail(f"f32 kernels-on logits differ from the plain versions by "
-             f"{dist['kernels f32']:.3e} > {F32_LOGIT_TOL} x {scale:.3f}")
-    if dist["kernels bf16"] > BF16_ERROR_RATIO * dist["plain bf16"]:
-        fail(f"bf16 kernels-on logits are {dist['kernels bf16']:.4f} from the f32 ones, "
-             f"more than {BF16_ERROR_RATIO} x the plain bf16 path's "
-             f"{dist['plain bf16']:.4f}")
+           for name, (p, pol) in four_runs(params32, cparams).items()}
+    logits_check(f"serve (rid {req.rid}, prompt {len(req.prompt)}, prefill + 8 decode "
+                 f"steps)", out)
     return counts, in_model
 
 
@@ -1244,6 +1266,11 @@ def check_f32_step_grads(cfg, params, dev):
           f"; tol {F32_GRAD_TOL:g}", flush=True)
     if not (math.isfinite(lk.item()) and abs(lk.item() - lp.item()) <= 1e-4 * abs(lp.item())):
         fail(f"f32 losses differ: kernels {lk.item()} plain {lp.item()}")
+    if cfg.frontend:
+        fe = {p: f"{e:.3e}" for p, (e, _) in errs.items()
+              if p.startswith(("projector/", "embed/", "unembed/"))}
+        print(f"f32 step grads of the {cfg.frontend} frontend's leaves, kernels vs plain "
+              f"(error over the leaf's max |grad|): {fe}", flush=True)
     if errs[worst][0] > F32_GRAD_TOL:
         fail(f"f32 step gradients, kernels vs plain: {worst} off by {errs[worst][0]:.3e}")
     if any(a == 0.0 or not math.isfinite(a) for a, _ in attn.values()):
@@ -1251,7 +1278,112 @@ def check_f32_step_grads(cfg, params, dev):
     return errs[worst][0]
 
 
-def train(dev):
+def exact_attention_bwd(q, k, v, o, lse, do, window=None, causal_shift=0):
+    """``ref.flash_attention_bwd_ref`` computed in f64 (autograd through the
+    f64 forward; ``o`` and ``lse`` are recomputed), in the inputs' dtype."""
+    from repro_torch.kernels import ref
+    B, H, Sq, D = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    with torch.enable_grad():           # called from within autograd's backward
+        qd, kd, vd = (t.detach().double().requires_grad_() for t in (q, k, v))
+        sc = torch.einsum("bkgqd,bktd->bkgqt", qd.reshape(B, KVH, H // KVH, Sq, D), kd) \
+            / math.sqrt(D)
+        sc = torch.where(ref._mask(Sq, Skv, window, causal_shift, q.device), sc, -1e300)
+        od = torch.einsum("bkgqt,bktd->bkgqd", torch.softmax(sc, dim=-1), vd)
+        grads = torch.autograd.grad(od.reshape(B, H, Sq, D), (qd, kd, vd), do.double())
+    return tuple(g.to(q.dtype) for g in grads)
+
+
+def check_f32_step_grads_exact(cfg, params, dev):
+    """The f32 gradients of one whole step (batch 1, seq 512) where the plain
+    f32 path itself is far from exact (musicgen-medium's 48 random-init
+    layers carry each call's f32 rounding into gradients of ~1e5): the
+    kernels held to the same model with each attention call, forward and
+    backward, computed in f64 (``exact_attention_fwd``/``_bwd``), no further
+    from it than F32_ERROR_RATIO times the plain f32 path, at the worst leaf
+    (error over the leaf's max |exact grad|) and per attention call (summed
+    over the calls and at the worst call, against each call's plain f32
+    version); the attention weights' gradients nonzero."""
+    from repro_torch.configs.base import RunPolicy, ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ref
+    from repro_torch.models.module import flatten
+    from repro_torch.train import train_step as pts
+    batch = SyntheticLM(cfg, ShapeSpec("f32 check", "train", 512, 1), seed=1).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    pol = lambda pallas: RunPolicy(dtype="f32", use_pallas=pallas, remat="dots",
+                                   n_microbatch=1)
+    real = fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd
+    calls = {}
+
+    def record(name, got, plain, exact):
+        st = calls.setdefault(name, {"calls": 0, "kernel_vs_f64": 0.0, "plain_vs_f64": 0.0,
+                                     "kernel_vs_f64_max": 0.0, "plain_vs_f64_max": 0.0})
+        st["calls"] += 1
+        for who, xs in (("kernel", got), ("plain", plain)):
+            err = max((x.double() - e.double()).abs().max().item()
+                      / max(e.double().abs().max().item(), 1e-30) for x, e in zip(xs, exact))
+            st[f"{who}_vs_f64"] += err
+            st[f"{who}_vs_f64_max"] = max(st[f"{who}_vs_f64_max"], err)
+
+    def fwd(q, k, v, **kw):
+        o, lse = real[0](q, k, v, **kw)
+        record("flash_attention_fwd", (o,), ref.flash_attention_ref(q, k, v, **kw)[:1],
+               exact_attention_fwd(q, k, v, **kw)[:1])
+        return o, lse
+
+    def bwd(q, k, v, o, lse, do, **kw):
+        got = real[1](q, k, v, o, lse, do, **kw)
+        record("flash_attention_bwd", got, ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+               exact_attention_bwd(q, k, v, o, lse, do, **kw))
+        return got
+    fwd.launches = 0
+    out = {}
+    for name, pallas, sites in (("exact", True, (exact_attention_fwd, exact_attention_bwd)),
+                                ("kernels", True, (fwd, bwd)), ("plain", False, real)):
+        fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd = sites
+        try:
+            out[name] = pts.compute_grads(cfg, pol(pallas), params, batch)
+            torch.cuda.synchronize()
+        finally:
+            fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd = real
+    exact = dict(flatten(out["exact"][2]))
+    worst = {}
+    for name in ("kernels", "plain"):
+        errs = {"/".join(p): (g - exact[p]).abs().max().item()
+                / max(exact[p].abs().max().item(), 1e-30)
+                for p, g in flatten(out[name][2])}
+        leaf = max(errs, key=errs.get)
+        worst[name] = (errs[leaf], leaf)
+    attn = {w: g.abs().max().item() for w, g in attention_grads(out["kernels"][2]).items()}
+    print(f"f32 step grads (batch 1, seq 512, {len(exact)} leaves; loss kernels "
+          f"{out['kernels'][0].item():.6f}, plain {out['plain'][0].item():.6f}, f64 attention "
+          f"{out['exact'][0].item():.6f}): worst leaf from the f64-attention grads, kernels "
+          f"{worst['kernels'][0]:.3e} ({worst['kernels'][1]}), plain {worst['plain'][0]:.3e} "
+          f"({worst['plain'][1]}); per attention call, error over max|f64 output| "
+          f"{json.dumps(calls)}; attention weights' max|grad| "
+          f"{ {w: f'{a:.3e}' for w, a in attn.items()} }; ratio {F32_ERROR_RATIO:g}",
+          flush=True)
+    for name, st in calls.items():
+        if st["calls"] == 0 or st["kernel_vs_f64"] > F32_ERROR_RATIO * st["plain_vs_f64"] \
+                or st["kernel_vs_f64_max"] > F32_ERROR_RATIO * st["plain_vs_f64_max"]:
+            fail(f"f32 {name} is further from the f64 attention than {F32_ERROR_RATIO} x "
+                 f"its plain version: {st}")
+    if worst["kernels"][0] > F32_ERROR_RATIO * worst["plain"][0]:
+        fail(f"f32 step gradients: the kernels' are {worst['kernels'][0]:.3e} from those of "
+             f"f64 attention, more than {F32_ERROR_RATIO} x the plain path's "
+             f"{worst['plain'][0]:.3e}")
+    if any(a == 0.0 or not math.isfinite(a) for a in attn.values()):
+        fail(f"attention-weight gradients missing: {attn}")
+    return worst["kernels"][0]
+
+
+def train(dev, arch="qwen2-1.5b", f32_exact=False):
+    """One arch's train cell at full published width (phase 5; the
+    frontends' train phases run it for internvl2-1b and musicgen-medium).
+    ``f32_exact``: the f32 step's gradients are held to the model with f64
+    attention (``check_f32_step_grads_exact``), not to the plain versions."""
     from repro_torch.configs.base import SHAPES, RunPolicy, ShapeSpec, get_config
     from repro_torch.data.pipeline import Prefetcher, SyntheticLM
     from repro_torch.kernels import ops
@@ -1260,7 +1392,8 @@ def train(dev):
     from repro_torch.models.module import flatten
     from repro_torch.train import train_step as pts
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(arch)
+    tag = "train" if arch == "qwen2-1.5b" else f"train {arch}"
     policy = RunPolicy(use_pallas=True, remat="dots", n_microbatch=2)
     n_timed = 3
     opt = opt_config("adamw", lr=1e-3, steps=1 + n_timed)
@@ -1270,7 +1403,7 @@ def train(dev):
     n_bwd = cfg.n_layers * policy.n_microbatch
     expect = {"flash_attention_fwd": n_fwd, "flash_attention_bwd_dq": n_bwd,
               "flash_attention_bwd_dkv": n_bwd, "flash_decode": 0}
-    print(f"train: {cfg.name} at full width, seq {shape.seq_len}, global batch "
+    print(f"{tag}: {cfg.name} at full width, seq {shape.seq_len}, global batch "
           f"{shape.global_batch} in {policy.n_microbatch} microbatches, remat "
           f"{policy.remat}, {policy.dtype} compute, adamw {opt}; expected launches per "
           f"step {expect}", flush=True)
@@ -1279,7 +1412,7 @@ def train(dev):
     opt_state = pts.make_init_opt(cfg, policy, opt)(params)
     step_fn = pts.make_train_step(cfg, policy, opt)
     torch.cuda.synchronize()
-    print(f"train: init {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"{tag}: init {time.perf_counter() - t0:.2f} s", flush=True)
     pf = Prefetcher(SyntheticLM(cfg, shape, seed=0))
     state = {"params": params, "opt": opt_state}
     del params, opt_state
@@ -1295,7 +1428,7 @@ def train(dev):
 
     try:
         _, m, ms = one_step()                            # warm-up, off the record
-        print(f"train: warm-up step {ms:.1f} ms, loss {m['loss'].item():.4f}", flush=True)
+        print(f"{tag}: warm-up step {ms:.1f} ms, loss {m['loss'].item():.4f}", flush=True)
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launch_counts()
         losses, norms, step_ms = [], [], []
@@ -1307,23 +1440,23 @@ def train(dev):
         counts = ops.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         tokens = shape.seq_len * shape.global_batch
-        print(f"train: {n_timed} steps, loss {[round(x, 4) for x in losses]}, grad norm "
+        print(f"{tag}: {n_timed} steps, loss {[round(x, 4) for x in losses]}, grad norm "
               f"{[round(x, 4) for x in norms]}; step ms {[round(x, 3) for x in step_ms]} "
               f"(median {np.median(step_ms):.3f}); {tokens / np.median(step_ms) * 1e3:.1f} "
               f"tokens/s; peak memory {peak_gb:.2f} GB; launches {counts}", flush=True)
         for name, n in expect.items():
             if counts[name] != n_timed * n:
-                fail(f"train: {name} launched {counts[name]} times in {n_timed} steps, "
+                fail(f"{tag}: {name} launched {counts[name]} times in {n_timed} steps, "
                      f"expected {n_timed} x {n}")
         if not all(math.isfinite(x) for x in losses + norms):
-            fail(f"train: non-finite loss or grad norm {losses} {norms}")
+            fail(f"{tag}: non-finite loss or grad norm {losses} {norms}")
         bad = [p for p, a in flatten(state["params"]) if not torch.isfinite(a).all()]
         if bad:
-            fail(f"train: non-finite params after {n_timed} steps: {bad[:4]}")
+            fail(f"{tag}: non-finite params after {n_timed} steps: {bad[:4]}")
         prof = device_profile(one_step, 1)
-        print_profile("train profile (1 step)", *prof)
+        print_profile(f"{tag} profile (1 step)", *prof)
         if prof[1] is not None:
-            print(f"train: device busy {prof[1]:.3f} ms of the unprofiled median step "
+            print(f"{tag}: device busy {prof[1]:.3f} ms of the unprofiled median step "
                   f"{np.median(step_ms):.3f} ms: idle share "
                   f"{1 - prof[1] / np.median(step_ms):.3f}", flush=True)
     finally:
@@ -1331,13 +1464,14 @@ def train(dev):
 
     grads, in_model = check_bwd_in_model(cfg, policy, state["params"], batch)
     attn = {w: g.abs().max().item() for w, g in attention_grads(grads).items()}
-    print(f"train: bf16 attention-weight gradients of one microbatch, max |grad| "
+    print(f"{tag}: bf16 attention-weight gradients of one microbatch, max |grad| "
           f"{ {w: f'{a:.3e}' for w, a in attn.items()} }", flush=True)
     if any(a == 0.0 or not math.isfinite(a) for a in attn.values()):
-        fail(f"train: attention-weight gradients missing: {attn}")
+        fail(f"{tag}: attention-weight gradients missing: {attn}")
     del grads, state["opt"]
     torch.cuda.empty_cache()
-    f32_err = check_f32_step_grads(cfg, state["params"], dev)
+    f32_err = (check_f32_step_grads_exact if f32_exact else check_f32_step_grads)(
+        cfg, state["params"], dev)
     return counts, in_model, f32_err
 
 
@@ -1353,6 +1487,8 @@ SERVE_LAUNCHES = {
     # the depth cut to MIXTRAL_LAYERS of 32 (f32 params and their bf16 copy
     # of 6 layers take ~54 GB of the card's 80)
     "mixtral-8x7b": ({"flash_attention_fwd": 6}, {"flash_decode": 6}),
+    # served as text by the engine (the patch prefix goes through make_prefill_step)
+    "internvl2-1b": ({"flash_attention_fwd": 24}, {"flash_decode": 24}),
 }
 MIXTRAL_LAYERS = 6
 
@@ -1752,7 +1888,7 @@ def serve_moe(dev):
     F32_ERROR_RATIO times the plain f32 versions (each run with the f64 run's
     router choices); bf16, the loose check, no further from the f32 plain
     logits than BF16_ERROR_RATIO times the plain bf16 path."""
-    from repro_torch.configs.base import RunPolicy, get_config
+    from repro_torch.configs.base import get_config
     from repro_torch.models import api
     arch = "mixtral-8x7b"
     cfg = dataclasses.replace(get_config(arch), n_layers=MIXTRAL_LAYERS)
@@ -1768,10 +1904,7 @@ def serve_moe(dev):
              "prefill_calls": len(pre), "decode_calls": len(dec)}
     print(f"{arch} MoE dropped_frac (capacity factor 1.25): {json.dumps(drops)}", flush=True)
     req = max(done, key=lambda r: len(r.prompt))
-    runs = {"kernels bf16": (cparams, RunPolicy(use_pallas=True)),
-            "plain bf16": (cparams, RunPolicy(use_pallas=False)),
-            "kernels f32": (params, RunPolicy(dtype="f32", use_pallas=True)),
-            "plain f32": (params, RunPolicy(dtype="f32", use_pallas=False))}
+    runs = four_runs(params, cparams)
     out = {name: teacher_forced(api, cfg, p, pol, req, dev) for name, (p, pol) in runs.items()}
     # f32 against the exact attention (see F32_ERROR_RATIO): the same model
     # with each attention call computed in f64, every run with that run's
@@ -1785,33 +1918,10 @@ def serve_moe(dev):
         with routing(record, replay=True), \
                 (against_exact(exact_calls) if name == "kernels f32" else contextlib.nullcontext()):
             f32[name] = teacher_forced(api, cfg, params, runs[name][1], req, dev)
-    for name, x in list(out.items()) + list(f32.items()):
-        if x.shape != (9, 1, cfg.vocab_size) or not torch.isfinite(x).all():
-            fail(f"{arch} {name}: logits of shape {tuple(x.shape)} or not finite")
-    ref32 = out["plain f32"]
-    scale = max(1.0, ref32.abs().max().item())
-    dist = {name: (x - ref32).abs().max().item() for name, x in out.items()}
     to_exact = {name: (x - exact).abs().max().item() for name, x in f32.items()}
-    print(f"{arch} teacher-forced (rid {req.rid}, prompt {len(req.prompt)}, prefill + 8 "
-          f"decode steps): max|logit| {scale:.4f}; max|logit - plain f32| "
-          f"{ {k: round(v, 6) for k, v in dist.items()} }; with the exact run's routing "
-          f"({len(record)} routing sorts), max|logit - logits of f64 attention| "
-          f"{ {k: round(v, 6) for k, v in to_exact.items()} }; per attention call, error "
-          f"over max|f64 output| {json.dumps(exact_calls)}", flush=True)
-    for name, st in exact_calls.items():
-        # summed over the calls, and at the worst call
-        if st["calls"] == 0 or st["kernel_vs_f64"] > F32_ERROR_RATIO * st["plain_vs_f64"] \
-                or st["kernel_vs_f64_max"] > F32_ERROR_RATIO * st["plain_vs_f64_max"]:
-            fail(f"{arch}: f32 {name} is further from the f64 attention than "
-                 f"{F32_ERROR_RATIO} x its plain version: {st}")
-    if to_exact["kernels f32"] > F32_ERROR_RATIO * to_exact["plain f32"]:
-        fail(f"{arch}: f32 kernels-on logits are {to_exact['kernels f32']:.3e} from those of "
-             f"the f64 attention, more than {F32_ERROR_RATIO} x the plain f32 path's "
-             f"{to_exact['plain f32']:.3e}")
-    if dist["kernels bf16"] > BF16_ERROR_RATIO * dist["plain bf16"]:
-        fail(f"{arch}: bf16 kernels-on logits are {dist['kernels bf16']:.4f} from the f32 "
-             f"ones, more than {BF16_ERROR_RATIO} x the plain bf16 path's "
-             f"{dist['plain bf16']:.4f}")
+    logits_check(f"{arch} (rid {req.rid}, prompt {len(req.prompt)}, prefill + 8 decode "
+                 f"steps; f32 runs with the exact run's routing, {len(record)} routing "
+                 f"sorts)", out, exact=(to_exact, exact_calls))
     del params, cparams, out
     torch.cuda.empty_cache()
     return {"serve_launches": counts, "in_model": in_model, "dropped": drops,
@@ -1910,42 +2020,10 @@ def check_attention_d32(gen, dev, timer, context):
         fail("a backward kernel at head dim 32 is not deterministic")
     del dq_runs, dkv_runs
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    kx, vx = k.repeat_interleave(H // KVH, 1), v.repeat_interleave(H // KVH, 1)
-    qx, kxg, vxg = (t.detach().requires_grad_() for t in (q, kx, vx))
-    out = sdpa(qx, kxg, vxg, is_causal=True)
-    sdpa_bwd_ms = timer.ms(lambda: torch.autograd.grad(out, (qx, kxg, vxg), do,
-                                                       retain_graph=True))
-    pairs = B * H * visible_pairs(S, S, None, 0)
-    n_qo, n_kv = q.numel(), k.numel()
+    rows = attention_rows(timer, q, k, v, do, o, lse, delta, worst, bit_equal,
+                          "bench train cell, ", context)
     regs = kernel_regs("flash_attention", "32>") + "; " + \
         kernel_regs("flash_attention_bwd", "32>")
-    rows = {}
-    for name, key, fn, plain, lib_ms, n_mm, nbytes in (
-            ("flash_attention_fwd", "fwd", lambda: flash_attention_fwd(q, k, v),
-             lambda: ref.flash_attention_ref(q, k, v),
-             timer.ms(lambda: sdpa(q, kx, vx, is_causal=True)), 2,
-             2 * (2 * n_qo + 2 * n_kv) + 4 * B * H * S),               # q o, k v; lse
-            ("flash_attention_bwd_dq", "dq", lambda: flash_attention_bwd_dq(q, k, v, o, lse, do),
-             lambda: ref.flash_attention_bwd_dq_ref(q, k, v, o, lse, do), sdpa_bwd_ms, 3,
-             2 * (4 * n_qo + 2 * n_kv) + 4 * 2 * B * H * S),           # q o do dq, k v; lse delta
-            ("flash_attention_bwd_dkv", "dkv",
-             lambda: flash_attention_bwd_dkv(q, k, v, lse, delta, do),
-             lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, lse, delta, do), sdpa_bwd_ms, 4,
-             2 * (2 * n_qo + 4 * n_kv) + 4 * 2 * B * H * S)):          # q do, k v dk dv; lse delta
-        flops = 2.0 * D * pairs * n_mm
-        row = {"ms": timer.ms(fn), "plain_ms": timer.ms(plain, iters=3),
-               "library_ms": lib_ms, "max_abs_err": worst[key],
-               "bit_equal_runs": bit_equal.get(key, True),
-               "shape": f"B={B} H={H} KVH={KVH} S={S} D={D} bf16 causal"}
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        row["tflops"] = flops / row["ms"] / 1e9
-        print(f"{name} at D=32 (bench train cell, {row['shape']}): {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB; kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
-              f"TFLOP/s), plain {row['plain_ms']:.4f} ms, sdpa{' backward' if n_mm > 2 else ''} "
-              f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
-              f"{context}", flush=True)
-        rows[name] = row
     print(f"d32 registers: {regs}", flush=True)
     return rows
 
@@ -2153,6 +2231,468 @@ def bench_step(dev):
     return out
 
 
+# ------------------------------------------------ slice 7: the frontends at head dim 64
+
+# (B, H, KVH, S) at head dim 64: internvl2-1b's multimodal prefill (14 query
+# heads over 2 KV heads, G = 7; 256 patch embeddings and 1000 text tokens)
+# and one musicgen-medium training microbatch (24 heads over 24, G = 1)
+D64_PREFILL = (1, 14, 2, 1256)
+D64_TRAIN = (1, 24, 24, 4096)
+D64_DECODE_FILLS = (4096, 3000, 1000, 64)          # 4 lanes of a 4096-slot cache
+
+
+def attention_rows(timer, q, k, v, do, o, lse, delta, worst, bit_equal, where, context):
+    """Report rows of the forward, dq and dk/dv on one causal bf16 call
+    (q, k, v, its output gradient do, plain o, lse and the delta of dq):
+    kernel, plain and SDPA times, the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq,
+                                                     flash_attention_fwd)
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kx, vx = k.repeat_interleave(H // KVH, 1), v.repeat_interleave(H // KVH, 1)
+    qx, kxg, vxg = (t.detach().requires_grad_() for t in (q, kx, vx))
+    out = sdpa(qx, kxg, vxg, is_causal=True)
+    sdpa_bwd_ms = timer.ms(lambda: torch.autograd.grad(out, (qx, kxg, vxg), do,
+                                                       retain_graph=True))
+    pairs = B * H * visible_pairs(S, S, None, 0)
+    n_qo, n_kv = q.numel(), k.numel()
+    shape = f"B={B} H={H} KVH={KVH} S={S} D={D} bf16 causal"
+    rows = {}
+    for name, key, fn, plain, lib_ms, n_mm, nbytes in (
+            ("flash_attention_fwd", "fwd", lambda: flash_attention_fwd(q, k, v),
+             lambda: ref.flash_attention_ref(q, k, v),
+             timer.ms(lambda: sdpa(q, kx, vx, is_causal=True)), 2,
+             2 * (2 * n_qo + 2 * n_kv) + 4 * B * H * S),               # q o, k v; lse
+            ("flash_attention_bwd_dq", "dq", lambda: flash_attention_bwd_dq(q, k, v, o, lse, do),
+             lambda: ref.flash_attention_bwd_dq_ref(q, k, v, o, lse, do), sdpa_bwd_ms, 3,
+             2 * (4 * n_qo + 2 * n_kv) + 4 * 2 * B * H * S),           # q o do dq, k v; lse delta
+            ("flash_attention_bwd_dkv", "dkv",
+             lambda: flash_attention_bwd_dkv(q, k, v, lse, delta, do),
+             lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, lse, delta, do), sdpa_bwd_ms, 4,
+             2 * (2 * n_qo + 4 * n_kv) + 4 * 2 * B * H * S)):          # q do, k v dk dv; lse delta
+        flops = 2.0 * D * pairs * n_mm
+        row = {"ms": timer.ms(fn), "plain_ms": timer.ms(plain, iters=3),
+               "library_ms": lib_ms, "max_abs_err": worst[key],
+               "bit_equal_runs": bit_equal.get(key, True), "shape": shape}
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        row["tflops"] = flops / row["ms"] / 1e9
+        print(f"{name} at D={D} ({where}{shape}): {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB; kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
+              f"TFLOP/s), plain {row['plain_ms']:.4f} ms, sdpa{' backward' if n_mm > 2 else ''} "
+              f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"{context}", flush=True)
+        rows[name] = row
+    return rows
+
+
+def d64_rows(gen, dev, timer, B, H, KVH, S, worst, bit_equal, context):
+    """``attention_rows`` at head dim 64, one call of (B, H, KVH, S)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_dq
+    q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, H, KVH, S, S, 64)
+    do = torch.randn(B, H, S, 64, generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = ref.flash_attention_ref(q, k, v)
+    delta = flash_attention_bwd_dq(q, k, v, o, lse, do)[1]
+    return attention_rows(timer, q, k, v, do, o, lse, delta, worst, bit_equal, "", context)
+
+
+def check_attention_d64(gen, dev, timer, context):
+    """The forward (bf16, f32), dq and dk/dv at head dim 64 against their
+    plain versions at internvl2-1b's multimodal prefill (G = 7) and
+    musicgen-medium's training microbatch (G = 1, S = 4096), and G = 7 at
+    internvl2's training microbatch; two runs of dq and of dk/dv at each
+    training shape must give the same bits; flash-decode (bf16, f32) at 4
+    lanes of a 4096-slot cache with both archs' heads.  Returns report rows
+    (musicgen's training microbatch and flash-decode at its heads), with
+    internvl2's G = 7 times beside them under ``g7``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq,
+                                                     flash_attention_fwd)
+    D = 64
+    cases = [(dt,) + s for s in (D64_PREFILL, D64_TRAIN, (1, 14, 2, 4096))
+             for dt in (torch.bfloat16, torch.float32)]
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for dtype, b, h, kvh, s in cases:
+        q, k, v = attn_inputs(gen, dev, dtype, b, h, kvh, s, s, D)
+        do = torch.randn(b, h, s, D, generator=gen, device=dev).to(dtype)
+        o, lse = flash_attention_fwd(q, k, v)
+        ro, rlse = ref.flash_attention_ref(q, k, v)
+        got = flash_attention_bwd(q, k, v, ro, rlse, do)
+        want = ref.flash_attention_bwd_ref(q, k, v, ro, rlse, do)
+        torch.cuda.synchronize()
+        e_o = (o.float() - ro.float()).abs().max().item()
+        e_l = (lse - rlse).abs().max().item()
+        errs = {n: scaled_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        ok = e_o <= TOL[dtype] and e_l <= TOL[dtype] and \
+            all(e[2] <= GRAD_TOL[dtype] for e in errs.values())
+        print(f"d64 {str(dtype)[6:]} B={b} H={h} KVH={kvh} G={h // kvh} S={s} D={D} causal: "
+              f"max|o|err={e_o:.3e} max|lse|err={e_l:.3e} "
+              + ", ".join(f"{n} err/max(1,|plain|)={e[2]:.3e}" for n, e in errs.items())
+              + f"; tol {TOL[dtype]:g}, grads {GRAD_TOL[dtype]:g} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail("an attention kernel at head dim 64 disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            worst["fwd"] = max(worst["fwd"], e_o, e_l)
+            worst["dq"] = max(worst["dq"], errs["dq"][0])
+            worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+        del q, k, v, do, o, lse, ro, rlse, got, want
+    bit_equal = {"dq": True, "dkv": True}
+    for b, h, kvh, s in (D64_TRAIN, (1, 14, 2, 4096)):
+        q, k, v = attn_inputs(gen, dev, torch.bfloat16, b, h, kvh, s, s, D)
+        do = torch.randn(b, h, s, D, generator=gen, device=dev).to(torch.bfloat16)
+        o, lse = ref.flash_attention_ref(q, k, v)
+        dq_runs = [flash_attention_bwd_dq(q, k, v, o, lse, do) for _ in range(2)]
+        dkv_runs = [flash_attention_bwd_dkv(q, k, v, lse, dq_runs[0][1], do) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = {"dq": all(torch.equal(x, y) for x, y in zip(*dq_runs)),
+                "dkv": all(torch.equal(x, y) for x, y in zip(*dkv_runs))}
+        print(f"d64 at B={b} H={h} KVH={kvh} S={s}: two dq runs "
+              f"{'bit-equal' if same['dq'] else 'DIFFER'}, two dk/dv runs "
+              f"{'bit-equal' if same['dkv'] else 'DIFFER'}", flush=True)
+        if not all(same.values()):
+            fail("a backward kernel at head dim 64 is not deterministic")
+        bit_equal = {n: bit_equal[n] and same[n] for n in same}
+        del q, k, v, do, o, lse, dq_runs, dkv_runs
+
+    rows = d64_rows(gen, dev, timer, *D64_TRAIN, worst, bit_equal, context)
+    g7 = d64_rows(gen, dev, timer, *D64_PREFILL, worst, bit_equal, context)
+    for name, row in rows.items():
+        row["g7"] = g7[name]
+    regs = kernel_regs("flash_attention", "64>") + "; " + \
+        kernel_regs("flash_attention_bwd", "64>")
+    print(f"d64 registers: {regs}", flush=True)
+
+    B, T = len(D64_DECODE_FILLS), 4096
+    worst_d = 0.0
+    for h, kvh in ((24, 24), (14, 2)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, pos, qpos = decode_inputs(gen, dev, dtype, B, h, kvh, T, D,
+                                               D64_DECODE_FILLS, None)
+            err = (flash_decode(q, k, v, pos, qpos).float()
+                   - ref.flash_decode_ref(q, k, v, pos, qpos).float()).abs().max().item()
+            ok = err <= TOL[dtype]
+            print(f"d64 flash_decode {str(dtype)[6:]} B={B} H={h} KVH={kvh} T={T} D={D} "
+                  f"fills={D64_DECODE_FILLS}: max|o|err={err:.3e} tol={TOL[dtype]:g} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail("flash_decode at head dim 64 disagrees with its plain version")
+            if dtype == torch.bfloat16:
+                worst_d = max(worst_d, err)
+    decode_rows = {}
+    for h, kvh in ((24, 24), (14, 2)):
+        q, k, v, pos, qpos = decode_inputs(gen, dev, torch.bfloat16, B, h, kvh, T, D,
+                                           D64_DECODE_FILLS, None)
+        kx, vx = k.repeat_interleave(h // kvh, 1), v.repeat_interleave(h // kvh, 1)
+        mask = ((pos >= 0) & (pos <= qpos[:, None]))[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row = {"ms": timer.ms(lambda: flash_decode(q, k, v, pos, qpos), iters=50),
+               "plain_ms": timer.ms(lambda: ref.flash_decode_ref(q, k, v, pos, qpos),
+                                    iters=20),
+               "library_ms": timer.ms(lambda: sdpa(q[:, :, None], kx, vx, attn_mask=mask),
+                                      iters=50),
+               "max_abs_err": worst_d,
+               "shape": f"B={B} H={h} KVH={kvh} T={T} D={D} bf16 fills={D64_DECODE_FILLS}"}
+        n_vis = int(mask.sum().item())
+        flops = 4.0 * h * D * n_vis
+        nbytes = 2 * 2 * kvh * D * n_vis + 4 * n_vis + 2 * 2 * B * h * D + 4 * B
+        full_bytes = 2 * 2 * B * kvh * T * D
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        print(f"flash_decode at D=64 ({row['shape']}): visible {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e6:.1f} MFLOP; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {context}", flush=True)
+        decode_report(row, flash_decode, (q, k, v, pos, qpos), None, nbytes, full_bytes, D)
+        decode_rows[(h, kvh)] = row
+    rows["flash_decode"] = decode_rows[(24, 24)]
+    rows["flash_decode"]["g7"] = decode_rows[(14, 2)]
+    return rows
+
+
+def logits_check(tag, out, exact=None):
+    """Teacher-forced logits (f32) of four runs, kernels on and off in bf16
+    and f32: the f32 kernels within F32_LOGIT_TOL of the largest plain f32
+    logit, or, given ``exact`` (``f32_to_exact``'s result: the model with f64
+    attention), no further from it than F32_ERROR_RATIO times the plain f32
+    path, per attention call (summed and at the worst) and in the logits;
+    the bf16 kernels no further from the plain f32 logits than
+    BF16_ERROR_RATIO times the plain bf16 path (the loose check)."""
+    ref32 = out["plain f32"]
+    for name, x in out.items():
+        if x.shape != ref32.shape or not torch.isfinite(x).all():
+            fail(f"{tag}: {name} logits of shape {tuple(x.shape)} or not finite")
+    scale = max(1.0, ref32.abs().max().item())
+    dist = {name: (x - ref32).abs().max().item() for name, x in out.items()}
+    agree = {name: (x.argmax(-1) == ref32.argmax(-1)).float().mean().item()
+             for name, x in out.items()}
+    print(f"{tag} teacher-forced logits {tuple(ref32.shape)}: max|logit| {scale:.4f}; "
+          f"max|logit - plain f32| { {k: round(v, 6) for k, v in dist.items()} }; argmax "
+          f"agreement with plain f32 { {k: round(v, 3) for k, v in agree.items()} }",
+          flush=True)
+    if exact is None and dist["kernels f32"] > F32_LOGIT_TOL * scale:
+        fail(f"{tag}: f32 kernels-on logits differ from the plain versions by "
+             f"{dist['kernels f32']:.3e} > {F32_LOGIT_TOL} x {scale:.3f}")
+    if exact is not None:
+        to_exact, calls = exact
+        print(f"{tag}: max|logit - logits of f64 attention| "
+              f"{ {k: round(v, 6) for k, v in to_exact.items()} }; per attention call, "
+              f"error over max|f64 output| {json.dumps(calls)}", flush=True)
+        for name, st in calls.items():
+            if st["calls"] == 0 or st["kernel_vs_f64"] > F32_ERROR_RATIO * st["plain_vs_f64"] \
+                    or st["kernel_vs_f64_max"] > F32_ERROR_RATIO * st["plain_vs_f64_max"]:
+                fail(f"{tag}: f32 {name} is further from the f64 attention than "
+                     f"{F32_ERROR_RATIO} x its plain version: {st}")
+        if to_exact["kernels f32"] > F32_ERROR_RATIO * to_exact["plain f32"]:
+            fail(f"{tag}: f32 kernels-on logits are {to_exact['kernels f32']:.3e} from those "
+                 f"of the f64 attention, more than {F32_ERROR_RATIO} x the plain f32 path's "
+                 f"{to_exact['plain f32']:.3e}")
+    if dist["kernels bf16"] > BF16_ERROR_RATIO * dist["plain bf16"]:
+        fail(f"{tag}: bf16 kernels-on logits are {dist['kernels bf16']:.4f} from the f32 "
+             f"ones, more than {BF16_ERROR_RATIO} x the plain bf16 path's "
+             f"{dist['plain bf16']:.4f}")
+    return dist
+
+
+def four_runs(params32, cparams):
+    """(params, policy) of the kernels on and off in bf16 (the engine's cast
+    params) and in f32."""
+    from repro_torch.configs.base import RunPolicy
+    return {"kernels bf16": (cparams, RunPolicy(use_pallas=True)),
+            "plain bf16": (cparams, RunPolicy(use_pallas=False)),
+            "kernels f32": (params32, RunPolicy(dtype="f32", use_pallas=True)),
+            "plain f32": (params32, RunPolicy(dtype="f32", use_pallas=False))}
+
+
+def in_model_ok(tag, stats, names):
+    print(f"{tag} in-model kernels vs plain versions (every layer): {stats}", flush=True)
+    if set(stats) != set(names):
+        fail(f"{tag}: in-model check saw calls of {sorted(stats)}, expected {sorted(names)}")
+    for name, s in stats.items():
+        key, tol = IN_MODEL_TOL[name]
+        if not s[key] <= tol:
+            fail(f"{tag}: {name} in the model's layout disagrees with its plain version: "
+                 f"{key} {s[key]:.3e} > {tol:g}; {s}")
+
+
+def timed_ms(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def serve_internvl2(dev, smi_line):
+    """internvl2-1b at full published width (24 layers, 14 query heads over 2
+    KV heads of 64), random weights from seed 0, kernels on.  The serving
+    engine serves it as text, as the JAX package's does (it sends only
+    tokens): 8 requests of 32 new tokens, prompts 64-3000 from numpy seed 0,
+    with exact launch counts, profiles and in-model checks
+    (``serve_full_width``) and teacher-forced logits of the longest
+    request.  Then one multimodal request through ``make_prefill_step``: 256
+    patch embeddings (seed 0) before a 1000-token prompt, and 8 greedy
+    decode steps: exact launches (24 forward, 24 flash-decode a step), ms,
+    the kernels held against their plain versions on the model's tensors,
+    and teacher-forced logits, kernels on against the plain versions."""
+    from repro_torch.configs.base import RunPolicy, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.train.train_step import make_decode_step, make_prefill_step
+
+    arch = "internvl2-1b"
+    cfg = get_config(arch)
+    params, cparams, counts, stats, numbers, done = serve_full_width(dev, arch, 4096, 3000)
+    req = max(done, key=lambda r: len(r.prompt))
+    text = {n: teacher_forced(api, cfg, p, pol, req, dev)
+            for n, (p, pol) in four_runs(params, cparams).items()}
+    logits_check(f"{arch} text (rid {req.rid}, prompt {len(req.prompt)}, prefill + 8 decode "
+                 f"steps)", text)
+    del text
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    pe = torch.randn(1, cfg.n_prefix, cfg.d_frontend, generator=g, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, 1000)
+                           .astype(np.int32), device=dev)[None]
+    S = cfg.n_prefix + toks.shape[1]
+    n_steps = 8
+
+    def run(p, policy, feed=None, step_ms=None):
+        """Logits (1 + n_steps, 1, V) of the multimodal prefill and n_steps
+        decode steps (greedy, or fed ``feed``), and the tokens fed."""
+        prefill, decode = make_prefill_step(cfg, policy, 4096), make_decode_step(cfg, policy)
+        with torch.inference_mode():
+            (logits, state), ms = timed_ms(lambda: prefill(p, {"tokens": toks,
+                                                               "patch_embeds": pe}))
+            seq, fed = [logits], []
+            if step_ms is not None:
+                step_ms.append(ms)
+            for j in range(n_steps):
+                tok = logits.argmax(-1).to(torch.int32) if feed is None else feed[j]
+                fed.append(tok)
+                b = {"tokens": tok[:, None], "position": torch.full((1,), S + j,
+                                                                     dtype=torch.int32,
+                                                                     device=dev)}
+                (logits, state), ms = timed_ms(lambda: decode(p, state, b))
+                seq.append(logits)
+                if step_ms is not None:
+                    step_ms.append(ms)
+        return torch.stack(seq).float(), fed
+
+    policy = RunPolicy(use_pallas=True)
+    run(cparams, policy)                                    # warm-up, off the record
+    ops.reset_launch_counts()
+    ms = []
+    _, fed = run(cparams, policy, step_ms=ms)
+    mm_counts = ops.launch_counts()
+    want = {"flash_attention_fwd": cfg.n_layers, "flash_decode": cfg.n_layers * n_steps}
+    print(f"{arch} multimodal: {cfg.n_prefix} patch embeddings + {toks.shape[1]} tokens "
+          f"prefill {ms[0]:.3f} ms, decode ms median {np.median(ms[1:]):.3f} over "
+          f"{n_steps} steps; launches {mm_counts} (expected {want}); {smi_line}", flush=True)
+    if {n: mm_counts.get(n, 0) for n in want} != want or \
+            any(v for n, v in mm_counts.items() if n not in want):
+        fail(f"{arch} multimodal launches {mm_counts} != {want}")
+    with torch.inference_mode():
+        print_profile(f"{arch} multimodal prefill profile ({S} positions)",
+                      *device_profile(lambda: make_prefill_step(cfg, policy, 4096)(
+                          cparams, {"tokens": toks, "patch_embeds": pe}), 1))
+    mm_stats = {}
+    with checked_kernels(mm_stats):
+        prefill, decode = make_prefill_step(cfg, policy, 4096), make_decode_step(cfg, policy)
+        with torch.inference_mode():
+            logits, state = prefill(cparams, {"tokens": toks, "patch_embeds": pe})
+            decode(cparams, state, {"tokens": fed[0][:, None],
+                                    "position": torch.full((1,), S, dtype=torch.int32,
+                                                           device=dev)})
+        torch.cuda.synchronize()
+    in_model_ok(f"{arch} multimodal (one prefill, one decode step)", mm_stats,
+                ("flash_attention_fwd", "flash_decode"))
+    mm = {n: run(p, pol, feed=fed)[0] for n, (p, pol) in four_runs(params, cparams).items()}
+    logits_check(f"{arch} multimodal (prefill + {n_steps} decode steps)", mm)
+    numbers.update(mm_prefill_ms=ms[0], mm_decode_ms_median=float(np.median(ms[1:])))
+    return counts, stats, mm_counts, mm_stats, numbers
+
+
+MUSICGEN_PROMPT = (4, 1500)       # lanes, frames of 4 codebooks
+MUSICGEN_STEPS = 32
+
+
+def serve_musicgen(dev, smi_line):
+    """musicgen-medium at full published width (48 layers, 24 heads of 64,
+    4 EnCodec codebooks of 2048), random weights from seed 0, bf16 compute,
+    kernels on, through ``make_prefill_step``/``make_decode_step`` (the
+    serving engine refuses encodec, as the JAX package's does): a 4-lane
+    prefill of 1500 frames (numpy seed 0) and 32 greedy decode steps of
+    (4, 1, 4) tokens.  Exact launches (48 forward a prefill, 48 flash-decode
+    a step), prefill and decode ms, frames/s, peak memory, profiles, the
+    kernels held against their plain versions on the model's tensors, and
+    teacher-forced logits (prefill + 8 steps), kernels on against off: f32
+    held to the model with f64 attention (F32_ERROR_RATIO), bf16 the loose
+    check."""
+    from repro_torch.configs.base import RunPolicy, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.train.train_step import make_decode_step, make_prefill_step
+
+    cfg = get_config("musicgen-medium")
+    policy = RunPolicy(use_pallas=True)
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed=0, device=dev)
+    cparams = api.cast_params(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"musicgen-medium: {api.n_params(cfg) / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    B, S = MUSICGEN_PROMPT
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S, cfg.n_codebooks)).astype(np.int32), device=dev)
+    cache_len = 2048
+
+    def generate(p, pol, n, feed=None, ms=None):
+        """Logits (1 + n, B, K, V) f32 of the prefill and n decode steps
+        (greedy, or fed ``feed``), and the (B, 1, K) tokens fed."""
+        prefill, decode = make_prefill_step(cfg, pol, cache_len), make_decode_step(cfg, pol)
+        with torch.inference_mode():
+            (logits, state), t = timed_ms(lambda: prefill(p, {"tokens": prompt}))
+            if ms is not None:
+                ms.append(t)
+            seq, fed = [logits.float()], []
+            for j in range(n):
+                tok = logits.argmax(-1).to(torch.int32)[:, None] if feed is None else feed[j]
+                fed.append(tok)
+                b = {"tokens": tok, "position": torch.full((B,), S + j, dtype=torch.int32,
+                                                           device=dev)}
+                (logits, state), t = timed_ms(lambda: decode(p, state, b))
+                seq.append(logits.float())
+                if ms is not None:
+                    ms.append(t)
+        return torch.stack(seq), fed
+
+    generate(cparams, policy, 2)                            # warm-up, off the record
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    ms = []
+    t0 = time.perf_counter()
+    _, fed = generate(cparams, policy, MUSICGEN_STEPS, ms=ms)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = {"flash_attention_fwd": cfg.n_layers, "flash_decode": cfg.n_layers * MUSICGEN_STEPS}
+    fps = B * MUSICGEN_STEPS / wall
+    print(f"musicgen-medium: {B} lanes, {S}-frame prompt of {cfg.n_codebooks} codebooks: "
+          f"prefill {ms[0]:.3f} ms; decode ms per step median {np.median(ms[1:]):.3f} p90 "
+          f"{np.percentile(ms[1:], 90):.3f} over {MUSICGEN_STEPS} steps; {B * MUSICGEN_STEPS} "
+          f"frames ({B * MUSICGEN_STEPS * cfg.n_codebooks} tokens) in {wall:.3f} s = "
+          f"{fps:.1f} frames/s; peak memory {peak_gb:.2f} GB; launches {counts} (expected "
+          f"{want}); {smi_line}", flush=True)
+    if {n: counts.get(n, 0) for n in want} != want or \
+            any(v for n, v in counts.items() if n not in want):
+        fail(f"musicgen-medium launches {counts} != {want}")
+    decode = make_decode_step(cfg, policy)
+    with torch.inference_mode():
+        _, state = make_prefill_step(cfg, policy, cache_len)(cparams, {"tokens": prompt})
+
+        def steps():
+            for j in range(5):
+                decode(cparams, state, {"tokens": fed[j % len(fed)], "position": torch.full(
+                    (B,), S + j, dtype=torch.int32, device=dev)})
+        print_profile("musicgen-medium decode profile (5 steps, 4 lanes)",
+                      *device_profile(steps, 5))
+        print_profile(f"musicgen-medium prefill profile ({B} x {S} frames)",
+                      *device_profile(lambda: make_prefill_step(cfg, policy, cache_len)(
+                          cparams, {"tokens": prompt}), 1))
+        del state
+    stats = {}
+    with checked_kernels(stats):
+        generate(cparams, policy, 1, feed=fed)
+        torch.cuda.synchronize()
+    in_model_ok("musicgen-medium (one 4-lane prefill, one decode step)", stats,
+                ("flash_attention_fwd", "flash_decode"))
+    tf = {n: generate(p, pol, 8, feed=fed)[0] for n, (p, pol) in
+          four_runs(params, cparams).items()}
+    # f32 against the model with f64 attention (as mixtral's check): 48
+    # random-init layers carry each call's f32 rounding far into the logits,
+    # the plain versions' and the kernels' alike
+    f32 = RunPolicy(dtype="f32", use_pallas=True)
+    with attention_sites(exact_attention_fwd, exact_decode):
+        exact = generate(params, f32, 8, feed=fed)[0]
+    calls = {}
+    with against_exact(calls):
+        kernels = generate(params, f32, 8, feed=fed)[0]
+    to_exact = {"kernels f32": (kernels - exact).abs().max().item(),
+                "plain f32": (tf["plain f32"] - exact).abs().max().item()}
+    logits_check("musicgen-medium (prefill + 8 decode steps)", tf, exact=(to_exact, calls))
+    numbers = {"prefill_ms": ms[0], "decode_ms_median": float(np.median(ms[1:])),
+               "decode_ms_p90": float(np.percentile(ms[1:], 90)), "frames_per_s": fps,
+               "peak_gb": peak_gb}
+    return counts, stats, numbers
+
+
 def measure_main():
     """``chip_smoke.py --measure``, the measure phase's own process (its fake
     process group stays out of the card phases): the corpus's witnesses and
@@ -2260,6 +2800,91 @@ def measure_main():
     summary["full_width"] = {"trace_s": m.compile_s, "counters": c}
     summary["seconds"] = time.perf_counter() - t_all
     print(json.dumps({"measure": summary}), flush=True)
+
+
+def measure_frontends_main():
+    """``chip_smoke.py --measure-frontends``, in a process of its own beside
+    the measure phase and the corpus replay: bench points of both frontend
+    archs (train_s under the four presets, prefill_s and decode_s under fsdp
+    and tp, on the single bench mesh) and compressed train points on the
+    multi mesh (int8 under dp, where the reference measures, and bf16 under
+    tp, where its XLA aborts), measured by ``measure_cell`` on fake cuda
+    tensors: each point's kinds those ``core/parity.py`` keeps (the
+    reference's, a listed difference, or at an abort the port's own CPU
+    trace's), its useful-FLOP ratio within 10 % of the reference's where the
+    reference measures, no op run replicated but those listed for its class,
+    and a compressed point's pod all-reduces counted.  The last line is a
+    JSON summary."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the measure phase traces on cuda tensors")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import anomaly, parity
+    from repro_torch.core.benchscale import BENCH_SHAPES, bench_archs, bench_meshes
+    from repro_torch.core.counters import measure_cell
+    from repro_torch.core.minimize import baseline_point
+    from repro_torch.core.searchspace import SearchSpace
+    from repro_torch.launch.steps import build_cell
+
+    archs = ["internvl2-1b", "musicgen-medium"]
+    space = SearchSpace(bench_archs(archs), BENCH_SHAPES)
+    meshes = bench_meshes()
+    picks = [(a, "train_s", pr, "single", "none") for a in archs
+             for pr in ("dp", "fsdp", "tp", "ep")]
+    picks += [(a, sh, pr, "single", "none") for a in archs
+              for sh in ("prefill_s", "decode_s") for pr in ("fsdp", "tp")]
+    picks += [("internvl2-1b", "train_s", "dp", "multi", "int8"),
+              ("internvl2-1b", "train_s", "tp", "multi", "bf16")]
+    summary = {"points": []}
+    t_all = time.perf_counter()
+    for arch, sh, preset, mk, gc in picks:
+        p = space.normalize({**baseline_point(space, arch, sh), "preset": preset, "mesh": mk,
+                             "grad_compress": gc})
+        cfg, shape, policy, mk = space.to_run(p)
+        m = measure_cell(build_cell(cfg, shape, policy, meshes[mk]), device="cuda")
+        c = m.counters()
+        key = parity.grid_key(p)
+        kinds = sorted(anomaly.kinds(c, policy.remat))
+        want = list(parity.expected_point_kinds(key))
+        useful = c["perf.useful_flops_ratio"]
+        ref = parity.POINT_REFERENCE.get(key)
+        print(f"measure frontends {key}: kinds {kinds} (expected {want}), useful {useful:.4f} "
+              f"(reference {'aborts' if ref is None else f'{ref[1]:.4f}'}), all-reduces "
+              f"{c['diag.n_allreduce']}, trace {m.compile_s:.2f} s; counters {json.dumps(c)}; "
+              f"ops DTensor ran replicated {json.dumps(m.hlo['replicated_ops'])}", flush=True)
+        if kinds != want:
+            fail(f"measure frontends: {key} gives kinds {kinds}, expected {want}")
+        if ref is not None and abs(useful / ref[1] - 1) > parity.USEFUL_RATIO_REL_BOUND:
+            fail(f"measure frontends: {key} has useful-FLOP ratio {useful:.4f}, not within "
+                 f"{parity.USEFUL_RATIO_REL_BOUND:.0%} of the reference's {ref[1]:.4f}")
+        unlisted = parity.unlisted_replications(m.hlo["replicated_ops"], cfg.name,
+                                                policy.sharding_preset, shape.kind,
+                                                policy.n_microbatch)
+        if unlisted:
+            fail(f"measure frontends: {key} ran unlisted ops replicated: {unlisted}")
+        if gc != "none" and c["diag.n_allreduce"] <= 0:
+            fail(f"measure frontends: the compressed point {key} counted no all-reduce")
+        summary["points"].append({"point": key, "kinds": kinds, "trace_s": m.compile_s,
+                                  "counters": c})
+    summary["seconds"] = time.perf_counter() - t_all
+    print(json.dumps({"measure_frontends": summary}), flush=True)
+
+
+def measure_frontends_start():
+    """Start ``measure_frontends_main`` in a process of its own."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--measure-frontends"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def measure_frontends_finish(proc):
+    out, err = proc.communicate(timeout=900)
+    lines = out.splitlines()
+    for line in lines[:-1] if proc.returncode == 0 else lines:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        print(err[-6000:], file=sys.stderr, flush=True)
+        fail("measure frontends: the phase failed")
+    return json.loads(lines[-1])["measure_frontends"]
 
 
 def corpus_start(tmp):
@@ -2441,6 +3066,15 @@ def main():
     bwd["flash_attention_bwd_dq"]["d32"] = d32["flash_attention_bwd_dq"]
     bwd["flash_attention_bwd_dkv"]["d32"] = d32["flash_attention_bwd_dkv"]
     phase_seconds["kernels_d32"] = time.perf_counter() - t_phase
+
+    phase("kernels_d64")
+    t_phase = time.perf_counter()
+    d64 = check_attention_d64(gen, dev, timer, f"timer floor {floor_ms:.4f} ms; {smi_line}")
+    fa["d64"] = d64["flash_attention_fwd"]
+    fd["d64"] = d64["flash_decode"]
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        bwd[name]["d64"] = d64[name]
+    phase_seconds["kernels_d64"] = time.perf_counter() - t_phase
     del timer
     torch.cuda.empty_cache()
 
@@ -2459,11 +3093,17 @@ def main():
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="corpus_replay_") as tmp:
         replay = corpus_start(tmp)
+        frontends = measure_frontends_start()
         measured = measure_phase()
         phase_seconds["measure"] = time.perf_counter() - t_phase
         print(f"measure: {len(measured['points'])} corpus points, kernels off and on, and "
               f"the full-width point in {measured['seconds']:.1f} s (beside the corpus "
               f"replay)", flush=True)
+        phase("measure frontends")
+        measured_fe = measure_frontends_finish(frontends)
+        print(f"measure frontends: {len(measured_fe['points'])} points of the frontend archs "
+              f"and compressed train points in {measured_fe['seconds']:.1f} s (beside the "
+              f"measure phase and the corpus replay)", flush=True)
         phase("corpus")
         replayed = corpus_finish(replay)
     phase_seconds["measure + corpus"] = time.perf_counter() - t_phase
@@ -2545,6 +3185,53 @@ def main():
           f"teacher-forced logits from those of f64 attention "
           f"{json.dumps(moe['f32_logits_to_exact'])}; {smi_line}", flush=True)
     phase_seconds["serve mixtral-8x7b"] = time.perf_counter() - t_phase
+    del moe
+    torch.cuda.empty_cache()
+
+    phase("serve internvl2-1b")
+    t_phase = time.perf_counter()
+    ivl_counts, ivl_stats, mm_counts, mm_stats, ivl = serve_internvl2(dev, smi_line)
+    print(f"internvl2-1b: text prefill ms mean {ivl['prefill_ms_mean']:.3f}, decode ms median "
+          f"{ivl['decode_ms_median']:.3f} p90 {ivl['decode_ms_p90']:.3f}, "
+          f"{ivl['tokens_per_s']:.1f} tokens/s, peak {ivl['peak_gb']:.2f} GB; multimodal "
+          f"prefill {ivl['mm_prefill_ms']:.3f} ms, decode ms median "
+          f"{ivl['mm_decode_ms_median']:.3f}; {smi_line}", flush=True)
+    torch.cuda.empty_cache()
+    phase_seconds["serve internvl2-1b"] = time.perf_counter() - t_phase
+
+    phase("serve musicgen-medium")
+    t_phase = time.perf_counter()
+    mg_counts, mg_stats, mg = serve_musicgen(dev, smi_line)
+    torch.cuda.empty_cache()
+    phase_seconds["serve musicgen-medium"] = time.perf_counter() - t_phase
+
+    train_fe = {}
+    for arch in ("internvl2-1b", "musicgen-medium"):
+        phase(f"train {arch}")
+        t_phase = time.perf_counter()
+        train_fe[arch] = train(dev, arch, f32_exact=arch == "musicgen-medium")
+        torch.cuda.empty_cache()
+        phase_seconds[f"train {arch}"] = time.perf_counter() - t_phase
+    for name, row in (("flash_attention_fwd", fa), ("flash_decode", fd)):
+        row["d64"]["internvl2_serve_launches"] = ivl_counts[name]
+        row["d64"]["internvl2_multimodal_launches"] = mm_counts.get(name, 0)
+        row["d64"]["musicgen_serve_launches"] = mg_counts.get(name, 0)
+        row["d64"]["internvl2_in_model"] = ivl_stats[name]
+        row["d64"]["internvl2_multimodal_in_model"] = mm_stats[name]
+        row["d64"]["musicgen_in_model"] = mg_stats[name]
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        row = fa if name == "flash_attention_fwd" else bwd[name]
+        for arch, tag in (("internvl2-1b", "internvl2"), ("musicgen-medium", "musicgen")):
+            counts_fe, in_model_fe, f32_err_fe = train_fe[arch]
+            row["d64"][f"{tag}_train_launches"] = counts_fe[name]
+            # musicgen's f32 step is held to the model with f64 attention
+            row["d64"][f"{tag}_f32_step_grad_rel_err" + (
+                "_to_f64_attention" if arch == "musicgen-medium" else "")] = f32_err_fe
+            if name != "flash_attention_fwd":
+                grads = ("dq",) if name.endswith("dq") else ("dk", "dv")
+                for err in ("max_scaled_err", "max_rel_err"):
+                    row["d64"][f"{tag}_in_model_{err}"] = max(in_model_fe[g][err]
+                                                             for g in grads)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_seconds.items()})}",
           flush=True)
 
@@ -2578,7 +3265,7 @@ def main():
              launches=ssm["serve_launches"]["rwkv6_wkv"], tolerance=WKV_REL_TOL, **wkv_row),
     ]
     for kr in kernels:
-        rows = [kr] + [kr[d] for d in ("d256", "d32") if d in kr]
+        rows = [kr] + [kr[d] for d in ("d256", "d32", "d64") if d in kr]
         if not all(math.isfinite(r[k]) for r in rows
                    for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite numbers for {kr['name']}")
@@ -2675,6 +3362,8 @@ def step_times_main(src):
 if __name__ == "__main__":
     if sys.argv[1:] == ["--measure"]:
         measure_main()
+    elif sys.argv[1:] == ["--measure-frontends"]:
+        measure_frontends_main()
     elif sys.argv[1:2] == ["--step-times"]:
         step_times_main(sys.argv[2] if len(sys.argv) > 2 else ROOT / "src")
     else:

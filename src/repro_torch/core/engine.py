@@ -74,10 +74,9 @@ identical whether served cold, from memory, or from disk; callers that need
 the full :class:`~repro_torch.core.counters.Measurement` use
 ``measure_full``.
 
-The port runs no vit/encodec frontend yet: an engine over a space whose
-``arch`` factor holds such an arch raises ``NotImplementedError`` at
-construction, so that no search steers silently around points the port
-cannot trace.  The MoE archs are measured as every other.
+Every arch of the zoo is measured, the vit and encodec frontends and the
+MoE archs as every other, and every ``grad_compress`` value (a compressed
+multi-mesh train point traces its pod reduction's collectives).
 """
 from __future__ import annotations
 
@@ -88,7 +87,6 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any
 
 from ..launch.steps import build_cell
-from ..models import transformer as tfm
 from ..train.optimizer import OptConfig
 from . import counters as counters_mod
 from .measure_cache import MeasureCache, point_key_str, space_fingerprint
@@ -118,20 +116,6 @@ class _WriteBuf:
             cache.put_structs(space_fp, self.structs)
         if self.fps:
             cache.put_fps(space_fp, self.fps)
-
-
-def _check_ported(space):
-    """Raise if the space's ``arch`` factor holds an arch whose frontend the
-    port does not run yet (an arch only in ``space.archs``, which
-    ``restrict`` excludes, is never measured and passes)."""
-    for name in space.factors["arch"]:
-        try:
-            tfm._check_supported(space.archs[name])
-        except NotImplementedError as e:
-            raise NotImplementedError(
-                f"{name} needs a frontend the port does not run yet ({e}); it is "
-                "ROADMAP module queue item 4 (frontends): restrict the space's "
-                "arch factor to ported archs") from None
 
 
 def _point_class(cell):
@@ -170,7 +154,6 @@ class Engine:
         device: the device type of the fake tensors every trace runs on
         (also part of the persistent cache's space fingerprint).
         """
-        _check_ported(space)
         self.space = space
         self.device = device
         self.meshes = meshes

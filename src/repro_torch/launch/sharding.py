@@ -15,12 +15,14 @@ replicated.  ``spec_for`` gives, per tensor dim, the chosen mesh-axis names
 inside ``use_rules`` it redistributes a DTensor to the resolved placements
 (DTensor traces the collectives of that redistribution), and it records the
 resolved spec of every call, which the measurement's fingerprint hashes.
-Outside ``use_rules`` it returns its input.  The port has no ``shard_map``
-yet, so there is no manual-axis branch.
+Outside ``use_rules`` it returns its input.  Inside ``manual_axes`` (the
+compressed gradient's per-pod body, the counterpart of the JAX package's
+partial-manual ``shard_map``) it resolves on the mesh less those axes.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Mapping, Sequence
 
@@ -223,6 +225,41 @@ def use_rules(mesh, rules: Mapping, log: list | None = None):
         yield
     finally:
         _CTX.mesh, _CTX.rules, _CTX.log = prev
+
+
+@dataclasses.dataclass(frozen=True)
+class _SubMesh:
+    """The active mesh less some axes: the names and sizes that rules and
+    placements read."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+@contextlib.contextmanager
+def manual_axes(names):
+    """Inside, ``maybe_constrain`` resolves on the active mesh less the mesh
+    axes ``names`` and its rules drop every candidate that names one of them,
+    as the JAX package's constraints do inside a partial-manual
+    ``shard_map`` (the body owns those axes; its DTensors live on the mesh of
+    the others).  A no-op outside ``use_rules``."""
+    if _CTX.mesh is None:
+        yield
+        return
+    mesh = _CTX.mesh
+    keep = [(n, mesh.shape[n]) for n in mesh.axis_names if n not in names]
+    sub = _SubMesh(tuple(n for n, _ in keep), tuple(s for _, s in keep))
+    rules = {k: tuple(c for c in v if not any(m in names for m in c))
+             for k, v in _CTX.rules.items()}
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = sub, rules
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
 
 
 def maybe_constrain(x, axes):

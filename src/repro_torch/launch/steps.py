@@ -22,6 +22,7 @@ import torch
 from ..configs.base import ModelConfig, RunPolicy, ShapeSpec
 from ..models import api
 from ..models import transformer as tfm
+from ..models.module import tree_map
 from ..train.optimizer import OptConfig, opt_state_axes
 from ..train.train_step import (make_decode_step, make_init_opt, make_prefill_step,
                                 make_train_step)
@@ -199,6 +200,10 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, policy: RunPolicy,
         else:
             mom_spec = tree_specs(mesh, oshapes["mom"], oaxes["mom"], rules, stats)
         ospec = {"mom": mom_spec, "step": ()}
+        if "ef" in oshapes:
+            # each pod's error-feedback buffers: (n_pods, ...) on "pod"
+            ef_axes = tree_map(lambda a: ("pod_stack",) + tuple(a), paxes)
+            ospec["ef"] = tree_specs(mesh, oshapes["ef"], ef_axes, rules, stats)
         fn = make_train_step(cfg, policy, opt, mesh)
         return Cell(cfg, shape, policy, mesh, opt, fn, (pshapes, oshapes, bshapes),
                     (pspec, ospec, bspec), (0, 1), rules, stats)

@@ -5,13 +5,15 @@
       --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
       --seq 4096 --batch 2 --dtype bf16 --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium --smoke \
+      --steps 2 --device cpu       # also internvl2-1b (a patch prefix in every batch)
 
 It composes random params from a seed, the optimizer state, the microbatched
 train step (kernels on: on the CPU they are their plain versions) and the
 synthetic data pipeline with prefetch.  It runs on ``cuda`` unless given
-``--device cpu``.  The reference launcher's mesh, sharding presets,
-compressed gradients, checkpointing and elastic hooks are absent here: they
-wait for the sharding slice and the rest of ROADMAP module queue 7.
+``--device cpu``.  The reference launcher's mesh flags (``--preset``,
+``--compress``, ``--production-mesh``), checkpointing and elastic hooks are
+absent here: they wait for ROADMAP module queue 1.
 """
 from __future__ import annotations
 

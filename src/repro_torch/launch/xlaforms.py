@@ -19,6 +19,10 @@ into the forms the reference's program has:
   output, summed at once as XLA's partitioner sums a dot's partial result
   (DTensor's own rule for ``mm`` and ``bmm`` over any letters, less the
   partial-sum operands it lets through: XLA never carries one into a dot);
+  where an activation keeps its sequence shard on a mesh axis on which the
+  other, smaller operand is sharded too (FSDP's weight on its input dim,
+  the keys and values), that operand is gathered first, as XLA gathers it,
+  not both moved onto a contracted dim (``_gathered_for_kept_shards``);
 * ``log_softmax`` of a DTensor sharded along the reduced dim becomes
   ``x - max - log(sum(exp(x - max)))``, whose reductions DTensor partitions
   (partial results, all-reduced where they are made);
@@ -91,7 +95,51 @@ def dot_general(a, b, eqn: str):
     takes the output's rank: an int argument, so that DTensor's sharding
     cache, which keys on the arguments from the first int on, tells
     equations apart.)"""
+    return _summed(_dot_general(*_gathered_for_kept_shards(a, b, eqn), len(_parse(eqn)[2]),
+                                eqn))
+
+
+def _grad_product(a, b, eqn):
+    """A gradient's product: ``dot_general`` with the operands as DTensor
+    places them (``_sharded_like`` has put them in their primal's
+    placement)."""
     return _summed(_dot_general(a, b, len(_parse(eqn)[2]), eqn))
+
+
+def _gathered_for_kept_shards(a, b, eqn):
+    """``a`` and ``b``, where ``a`` (an activation) shards a letter of its
+    own that the output keeps (its sequence) on a mesh dim on which ``b``
+    shards a contracted letter (FSDP's weight, sharded on its input dim, or
+    the values against sequence-sharded probabilities) or a letter of its
+    own while sharing a batch letter with ``a`` (the keys against
+    sequence-sharded queries), and ``b`` is no larger than ``a``: ``b``
+    gathered on that mesh dim, so that the output keeps ``a``'s shard, as
+    XLA's partitioner all-gathers the weight or the keys and values, the
+    smaller operand.  DTensor weighs only its operands' redistribution:
+    where moving both shards onto a contracted dim costs less than
+    gathering a wide weight or many KV heads, it would contract a partial
+    sum and leave the output, and all that follows, unsharded on that mesh
+    dim.  (A weight sharded on its output dim, the tensor- or
+    vocab-parallel case, and a decode step's one-token query against its
+    cache are left to DTensor.)"""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) \
+            or a.device_mesh != b.device_mesh or b.numel() > a.numel():
+        return a, b
+    ea, eb, eo = _parse(eqn)
+    contracted = set(ea) & set(eb) - set(eo)
+    batch = set(ea) & set(eb) & set(eo)
+    pb = list(b.placements)
+    for i, (x, y) in enumerate(zip(a.placements, pb)):
+        if not (x.is_shard() and y.is_shard()):
+            continue
+        la, lb = ea[x.dim], eb[y.dim]
+        if la in eo and la not in eb and la != lb and \
+                (lb in contracted or (batch and lb in eo and lb not in ea)):
+            pb[i] = Replicate()
+    if pb != list(b.placements):
+        b = b.redistribute(b.device_mesh, pb)
+    return a, b
 
 
 def _summed(x):
@@ -138,10 +186,10 @@ def _dot_backward(ctx, g):
     ga = gb = None
     if ctx.needs_input_grad[0]:
         g_, b_ = _sharded_like(a, ea, [(g, eo), (b, eb)])
-        ga = dot_general(g_, b_, f"{eo},{eb}->{ea}")
+        ga = _grad_product(g_, b_, f"{eo},{eb}->{ea}")
     if ctx.needs_input_grad[1]:
         g_, a_ = _sharded_like(b, eb, [(g, eo), (a, ea)])
-        gb = dot_general(g_, a_, f"{eo},{ea}->{eb}")
+        gb = _grad_product(g_, a_, f"{eo},{ea}->{eb}")
     return ga, gb, None, None
 
 

@@ -30,14 +30,6 @@ def specs(cfg: ModelConfig):
     return tfm.build_specs(cfg)
 
 
-@functools.lru_cache(maxsize=64)
-def _count_specs(cfg: ModelConfig):
-    """The specs that parameter counts read: every arch's, those whose
-    blocks the port does not run yet included (the analytic floors and the
-    surrogate count them)."""
-    return tfm.build_specs(cfg, runnable=False)
-
-
 def init(cfg: ModelConfig, seed: int = 0, device="cuda",
          param_dtype=torch.float32):
     """Random parameters drawn on ``device`` from per-path seeded generators."""
@@ -53,12 +45,12 @@ def axes(cfg: ModelConfig):
 
 
 def n_params(cfg: ModelConfig) -> int:
-    return count_params(_count_specs(cfg))
+    return count_params(specs(cfg))
 
 
 def n_active_params(cfg: ModelConfig) -> int:
     """Active params per token (MoE: top_k of n_experts)."""
-    total = count_params(_count_specs(cfg))
+    total = count_params(specs(cfg))
     if not cfg.n_experts:
         return total
     expert_p = 3 * cfg.d_model * cfg.d_ff * cfg.n_experts * cfg.n_layers
@@ -74,7 +66,7 @@ def matmul_active_params(cfg: ModelConfig) -> int:
     useful-FLOPs anomaly check at any model scale.
     """
     total = 0
-    for path, s in tree_paths(_count_specs(cfg)):
+    for path, s in tree_paths(specs(cfg)):
         if len(s.shape) < 2:
             continue
         n = int(np.prod(s.shape))
@@ -89,23 +81,40 @@ def matmul_active_params(cfg: ModelConfig) -> int:
 
 # ----------------------------------------------------------------- input specs
 
+def _tok_shape(cfg: ModelConfig, B: int, S: int):
+    if cfg.frontend == "encodec":
+        return (B, S, cfg.n_codebooks)
+    return (B, S)
+
+
+def _batch_axes(shape):
+    return ("batch",) + (None,) * (len(shape) - 1)
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeSpec, compute_dtype=torch.bfloat16):
     """(batch_shapes, batch_axes) for the step function of this cell: leaves
-    are (shape, dtype) pairs.  The vit and encodec frontends' inputs wait for
-    their ROADMAP item, as their blocks do."""
-    tfm._check_supported(cfg)
+    are (shape, dtype) pairs.  encodec tokens and labels carry the K
+    codebooks last; the vit's text tokens are S - n_prefix long, after its
+    ``patch_embeds`` (B, n_prefix, d_frontend), and its labels S long."""
     B, S = shape.global_batch, shape.seq_len
     i32 = torch.int32
     if shape.kind in ("train", "prefill"):
-        shapes = {"tokens": ((B, S), i32)}
-        axes_ = {"tokens": ("batch", None)}
+        s_text = S - cfg.n_prefix if cfg.frontend == "vit" else S
+        tok = _tok_shape(cfg, B, s_text)
+        shapes = {"tokens": (tok, i32)}
+        axes_ = {"tokens": _batch_axes(tok)}
+        if cfg.frontend == "vit":
+            shapes["patch_embeds"] = ((B, cfg.n_prefix, cfg.d_frontend), compute_dtype)
+            axes_["patch_embeds"] = ("batch", None, None)
         if shape.kind == "train":
-            shapes["labels"] = ((B, S), i32)
-            axes_["labels"] = ("batch", None)
+            lab = _tok_shape(cfg, B, S)
+            shapes["labels"] = (lab, i32)
+            axes_["labels"] = _batch_axes(lab)
         return shapes, axes_
     if shape.kind == "decode":
-        return ({"tokens": ((B, 1), i32), "position": ((B,), i32)},
-                {"tokens": ("batch", None), "position": ("batch",)})
+        tok = _tok_shape(cfg, B, 1)
+        return ({"tokens": (tok, i32), "position": ((B,), i32)},
+                {"tokens": _batch_axes(tok), "position": ("batch",)})
     raise ValueError(shape.kind)
 
 

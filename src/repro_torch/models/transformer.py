@@ -8,8 +8,9 @@ in a Python loop (PyTorch runs eagerly, so ``scan_layers`` changes nothing
 here).  Under autograd each unit is rematerialised as ``RunPolicy.remat``
 says (``_remat_wrap``).  An attention block of an arch with experts has a
 routed MoE MLP (``models/moe.py``), whose router statistics are the block's
-aux output.  The vit/encodec frontends raise ``NotImplementedError`` naming
-their ROADMAP item.
+aux output.  The vit frontend (internvl2) puts projected patch embeddings
+before the text tokens; the encodec frontend (musicgen) sums one embedding
+table a codebook and unembeds into every codebook's vocabulary.
 """
 from __future__ import annotations
 
@@ -28,16 +29,12 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import rglru as rg
 from . import rwkv6 as rwkv
-from .layers import (apply_glu_mlp, apply_norm, apply_plain_mlp, embed_lookup,
-                     glu_mlp_specs, norm_specs, plain_mlp_specs)
+from .layers import (act_fn, apply_glu_mlp, apply_norm, apply_plain_mlp,
+                     embed_lookup, glu_mlp_specs, norm_specs, plain_mlp_specs)
 from .module import ParamSpec, map_specs, stack_layer_specs, tree_map
 from ..configs.base import ModelConfig, RunPolicy
 from ..launch.sharding import maybe_constrain
 
-_LATER = {
-    "vit": "vit frontend: ROADMAP module queue, frontends",
-    "encodec": "encodec frontend: ROADMAP module queue, frontends",
-}
 BLOCK_TYPES = ("attn", "rec", "rwkv")
 
 
@@ -45,8 +42,6 @@ def _check_supported(cfg: ModelConfig):
     for bt in cfg.block_pattern:
         if bt not in BLOCK_TYPES:
             raise ValueError(bt)
-    if cfg.frontend:
-        raise NotImplementedError(_LATER[cfg.frontend])
 
 
 def compute_dtype(policy: RunPolicy):
@@ -91,12 +86,8 @@ def _table_specs(cfg: ModelConfig):
     return {"table": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), "embed")}
 
 
-def build_specs(cfg: ModelConfig, runnable: bool = True):
-    """The parameter specs of ``cfg``.  ``runnable=False`` also gives those of
-    the archs whose frontends the port does not run yet (vit and encodec),
-    for counting parameters; by default they raise."""
-    if runnable:
-        _check_supported(cfg)
+def build_specs(cfg: ModelConfig):
+    _check_supported(cfg)
     n_units, tail = n_units_tail(cfg)
     unit = {f"b{i}": block_specs(cfg, bt) for i, bt in enumerate(cfg.block_pattern)}
     specs: dict[str, Any] = {
@@ -126,8 +117,8 @@ def cast_params(params, dtype):
     casting cast params is free: the serving engine casts once at build time.
 
     For a bf16 compute dtype the result also holds ``unembed_f32``, the
-    bf16-rounded unembedding table widened back to f32, from which the
-    logits are computed (the JAX package rounds the table the same way and
+    bf16-rounded unembedding table ((V, D), or (K, V, D) for encodec) widened
+    back to f32, from which the logits are computed (the JAX package rounds the table the same way and
     computes the logits in f32).  Keeping it avoids re-widening the table on
     every decode step.
     """
@@ -145,8 +136,24 @@ def cast_params(params, dtype):
 # ------------------------------------------------------------------ embedding
 
 def embed_tokens(params, cfg: ModelConfig, batch, compute_dtype):
-    """Returns (x (B,S,D), positions (B,S))."""
-    x = embed_lookup(params["embed"], batch["tokens"]).to(compute_dtype)
+    """Returns (x (B,S,D), positions (B,S)).
+
+    encodec: tokens (B,S,K), the sum over the K codebooks of each one's row.
+    vit: with ``patch_embeds`` (B,P,d_frontend) in the batch, the projector's
+    ``gelu(ln(pe) @ w1) @ w2`` goes before the text tokens, so S = P + S_text.
+    """
+    table = params["embed"]["table"]
+    if cfg.frontend == "encodec":
+        toks = batch["tokens"].long()
+        x = sum(table[k][toks[..., k]] for k in range(cfg.n_codebooks))
+    else:
+        x = embed_lookup(params["embed"], batch["tokens"])
+    x = x.to(compute_dtype)
+    if cfg.frontend == "vit" and "patch_embeds" in batch:
+        pr = params["projector"]
+        h = apply_norm(pr["ln"], batch["patch_embeds"].to(compute_dtype), cfg.norm)
+        h = act_fn("gelu")(h @ pr["w1"].to(compute_dtype))
+        x = torch.cat([h @ pr["w2"].to(compute_dtype), x], dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     B, S = x.shape[:2]
@@ -155,12 +162,16 @@ def embed_tokens(params, cfg: ModelConfig, batch, compute_dtype):
 
 
 def unembed_logits(params, cfg: ModelConfig, x):
-    """f32 logits from the (compute-dtype-rounded) unembedding table."""
+    """f32 logits from the (compute-dtype-rounded) unembedding table:
+    (..., V), or (..., K, V) for encodec's K codebooks."""
     table = params.get("unembed_f32")
     if table is None:
         table = (params["embed"] if cfg.tie_embeddings else params["unembed"])["table"]
         table = table.float()
-    logits = x.float() @ table.T
+    if cfg.frontend == "encodec":
+        logits = torch.einsum("...d,kvd->...kv", x.float(), table)
+    else:
+        logits = x.float() @ table.T
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
@@ -489,10 +500,11 @@ def forward(params, batch, cfg: ModelConfig, policy: RunPolicy,
 
 
 def decode_step(params, state, batch, cfg: ModelConfig, policy: RunPolicy):
-    """One-token decode.  batch: {"tokens": (B,1), "position": (B,)}.
+    """One-token decode.  batch: {"tokens": (B,1) ((B,1,K) for encodec),
+    "position": (B,)}.
 
     ``state`` is updated in place (each layer's cache is a view into the
-    stacked tensors) and returned.  Returns (logits (B,V), state).
+    stacked tensors) and returned.  Returns (logits (B,V) or (B,K,V), state).
     """
     _check_supported(cfg)
     cd = compute_dtype(policy)
@@ -516,7 +528,9 @@ def decode_step(params, state, batch, cfg: ModelConfig, policy: RunPolicy):
 # ----------------------------------------------------------------------- loss
 
 def lm_loss(logits, labels):
-    """Cross-entropy with mask (labels < 0 ignored). logits f32."""
+    """Cross-entropy with mask (labels < 0 ignored). logits f32, (..., V) over
+    labels (...): encodec's (B,S,K,V) over (B,S,K), the vit's labels -1 over
+    the patch prefix."""
     V = logits.shape[-1]
     mask = labels >= 0
     labels_c = labels.clamp(0, V - 1).long()

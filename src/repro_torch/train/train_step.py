@@ -2,21 +2,22 @@
 
 The train step composes microbatch gradient accumulation (a Python loop),
 mixed precision (f32 params, bf16 compute), the remat policy (inside the
-model), gradient clipping and the optimizer update.  Compressed cross-pod
-gradient reduction (``grad_compress``) waits for ROADMAP module queue 1.
+model), optional cross-pod compressed gradient reduction (a per-pod body on
+the mesh of the other axes, ``train/compression.py``), gradient clipping and
+the optimizer update.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig, RunPolicy
+from ..launch.sharding import manual_axes
 from ..models import api
 from ..models.module import flatten, tree_map, unflatten
+from . import compression
 from .optimizer import OptConfig, init_opt_state, opt_update
 
 MOE_AUX_COEF = 0.01
-_GRAD_COMPRESS = ("grad_compress: compressed cross-pod gradient reduction "
-                  "(train/compression.py) is not ported yet; ROADMAP module queue 1")
 
 
 def make_loss_fn(cfg: ModelConfig, policy: RunPolicy):
@@ -67,14 +68,21 @@ def compute_grads(cfg, policy, params, batch):
     return lsum / n, asum / n, unflatten(zip(paths, [g.div_(n) for g in gsum]))
 
 
+def _use_compress(policy: RunPolicy, mesh) -> bool:
+    return policy.grad_compress != "none" and mesh is not None and "pod" in mesh.shape
+
+
 def make_train_step(cfg: ModelConfig, policy: RunPolicy, opt: OptConfig, mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     On a mesh the arguments are DTensors and DTensor owns every reduction
-    (the SPMD partitioner does in the JAX package), so ``mesh`` changes
-    nothing here."""
-    if policy.grad_compress != "none":
-        raise NotImplementedError(_GRAD_COMPRESS)
+    (the SPMD partitioner does in the JAX package).  When
+    ``policy.grad_compress != 'none'`` and the mesh has a "pod" axis, the
+    cross-pod gradient reduction is explicit and compressed
+    (``_pod_train_step``); without a pod axis ``grad_compress`` changes
+    nothing, as in the JAX package."""
+    if _use_compress(policy, mesh):
+        return _pod_train_step(cfg, policy, opt)
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = compute_grads(cfg, policy, params, batch)
@@ -84,12 +92,152 @@ def make_train_step(cfg: ModelConfig, policy: RunPolicy, opt: OptConfig, mesh=No
     return train_step
 
 
-def make_init_opt(cfg: ModelConfig, policy: RunPolicy, opt: OptConfig, mesh=None):
-    if policy.grad_compress != "none":
-        raise NotImplementedError(_GRAD_COMPRESS)
+# ------------------------------------------------ the compressed pod reduction
 
+def _without_pod(placements, names, shift=0):
+    """The placements of the mesh dims other than "pod", a Shard's dim moved
+    by ``shift``."""
+    from torch.distributed.tensor import Shard
+    return [Shard(p.dim + shift) if p.is_shard() else p
+            for n, p in zip(names, placements) if n != "pod"]
+
+
+def _on(pod_placement, placements, names):
+    """``placements`` of the other mesh dims with ``pod_placement`` put in
+    the pod dim's place."""
+    it = iter(placements)
+    return [pod_placement if n == "pod" else next(it) for n in names]
+
+
+def _local_dtensor(local, sub, placements, shape):
+    """``local`` as a DTensor of ``shape`` on ``sub`` (the mesh of the
+    dims other than "pod"), or the tensor itself where there is none."""
+    import math
+    from torch.distributed.tensor import DTensor
+    if sub is None:
+        return local
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, sub, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def _pod_train_step(cfg, policy, opt):
+    """The train step with the cross-pod reduction in our hands, the
+    counterpart of the JAX package's partial-manual ``shard_map`` over "pod".
+
+    The params (replicated over "pod"), each pod's slice of the batch (its
+    rows, "pod" sharding dim 0 outermost) and each pod's error-feedback
+    buffers (``ef``: (n_pods, ...) leaves sharded on "pod") become DTensors
+    on the mesh of the other dims, where each pod computes its mean gradient
+    as DTensor partitions it, its constraints resolved without "pod"
+    (``sharding.manual_axes``).  Each gradient is placed as its param is,
+    and ``compression.reduce_grads`` reduces the shards over the pod dim's
+    group; loss and aux are averaged over it.  The results are rebuilt on
+    the whole mesh, replicated over "pod", and the optimizer updates as
+    without compression.
+
+    On plain tensors (the measurement's global trace, the program before it
+    is partitioned) the one pod is the whole batch, and its gradients are
+    compressed with no collective."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def global_grads(params, batch, ef):
+        loss, aux, grads = compute_grads(cfg, policy, params, batch)
+        red, new_ef = compression.reduce_grads(
+            grads, tree_map(lambda e: e[0], ef) if ef is not None else None,
+            policy.grad_compress, None)
+        n_pods = flatten(ef)[0][1].shape[0] if ef is not None else 1
+        return loss, aux, red, tree_map(
+            lambda e: e[None].expand((n_pods,) + tuple(e.shape)), new_ef)
+
+    def pod_grads(params, batch, ef):
+        p_flat = flatten(params)
+        dm = p_flat[0][1].device_mesh
+        names = dm.mesh_dim_names
+        others = tuple(n for n in names if n != "pod")
+        sub = dm[others] if others else None
+        group = dm.get_group("pod")
+        n_pods = dm.size(names.index("pod"))
+        R = Replicate()
+
+        def into_pod(t, pod_placement, shift=0):
+            """t on the whole mesh, with ``pod_placement`` on "pod" (a
+            redistribution where it differs), as the pod's DTensor."""
+            want = _on(pod_placement, _without_pod(t.placements, names), names)
+            if list(t.placements) != want:
+                t = t.redistribute(dm, want)
+            local = t.to_local()
+            shape = list(t.shape)
+            if pod_placement.is_shard():
+                shape[0] //= n_pods
+            if shift:
+                local, shape = local[0], shape[1:]
+            return _local_dtensor(local, sub, _without_pod(t.placements, names, -shift),
+                                  shape)
+
+        def to_mesh(t, shape, pod_placement):
+            """The pod's (DTensor or plain) ``t`` of ``shape`` on the whole
+            mesh, with ``pod_placement`` on "pod"."""
+            local = t.to_local() if isinstance(t, DTensor) else t
+            inner = t.placements if isinstance(t, DTensor) else [R] * len(others)
+            shift = 1 if pod_placement.is_shard() else 0
+            placements = _on(pod_placement,
+                             [Shard(p.dim + shift) if p.is_shard() else p for p in inner],
+                             names)
+            if shift:
+                local, shape = local[None], (n_pods,) + tuple(shape)
+            return _local_dtensor(local, dm, placements, tuple(shape))
+
+        pp = unflatten((k, into_pod(v, R)) for k, v in p_flat)
+        pb = tree_map(lambda t: into_pod(t, Shard(0)), batch)
+        pe = tree_map(lambda t: into_pod(t, Shard(0), shift=1), ef) if ef is not None \
+            else None
+        with manual_axes(("pod",)):
+            loss, aux, grads = compute_grads(cfg, policy, pp, pb)
+            g_flat = [(k, _placed_as(g, pp_leaf))
+                      for (k, g), (_, pp_leaf) in zip(flatten(grads), flatten(pp))]
+            red, new_ef = compression.reduce_grads(unflatten(g_flat), pe,
+                                                   policy.grad_compress, group)
+            loss = compression._all_reduce(loss, "sum", group) / n_pods
+            aux = compression._all_reduce(aux, "sum", group) / n_pods
+        shapes = dict((k, p.shape) for k, p in p_flat)
+        return (to_mesh(loss, loss.shape, R), to_mesh(aux, aux.shape, R),
+                unflatten((k, to_mesh(g, shapes[k], R)) for k, g in flatten(red)),
+                unflatten((k, to_mesh(e, shapes[k], Shard(0))) for k, e in flatten(new_ef)))
+
+    def train_step(params, opt_state, batch):
+        ef = opt_state.get("ef")
+        dtensors = isinstance(flatten(params)[0][1], DTensor)
+        loss, aux, grads, new_ef = (pod_grads if dtensors else global_grads)(
+            params, batch, ef)
+        new_params, new_opt, stats = opt_update(
+            opt, grads, {k: v for k, v in opt_state.items() if k != "ef"}, params)
+        new_opt["ef"] = new_ef
+        metrics = {"loss": loss, "moe_lb": aux[0], "moe_drop": aux[1], **stats}
+        return new_params, new_opt, metrics
+    return train_step
+
+
+def _placed_as(g, p):
+    """The gradient ``g`` redistributed to its param's placements."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def make_init_opt(cfg: ModelConfig, policy: RunPolicy, opt: OptConfig, mesh=None):
+    """The optimizer state's init; with a compressed pod reduction it also
+    holds ``ef``, each pod's error-feedback buffers: (n_pods, ...) f32 zeros
+    a param."""
     def init(params):
-        return init_opt_state(opt, params)
+        st = init_opt_state(opt, params)
+        if _use_compress(policy, mesh):
+            n_pods = mesh.shape["pod"]
+            st["ef"] = tree_map(lambda p: torch.zeros((n_pods,) + tuple(p.shape),
+                                                      dtype=torch.float32, device=p.device),
+                                params)
+        return st
     return init
 
 

@@ -248,6 +248,58 @@ def test_cuda_flash_attention_bwd_matches_plain(dt, D, B, H, KVH, Sq, Skv, windo
     assert (delta - (do.float() * o.float()).sum(-1)).abs().max().item() < 1e-3
 
 
+# the frontend archs' heads at head dim 64: internvl2-1b's 14 query heads over
+# 2 KV heads (G = 7) and musicgen-medium's 24 over 24 (G = 1)
+FRONTEND_HEADS = [(14, 2), (24, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("H,KVH", FRONTEND_HEADS)
+@pytest.mark.parametrize("S", [333, 1256])
+def test_cuda_attention_at_the_frontend_heads_matches_plain(dt, H, KVH, S):
+    """The forward, dq and dk/dv at D=64 with (H, KVH) = (14, 2) and (24, 24),
+    causal, in the model's (B,S,H,D) layout."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    mk = lambda *s: _heads_major(torch.randn(*s, generator=g, device=dev).to(TDT[dt]), True)
+    q, k, v, do = mk(1, H, S, 64), mk(1, KVH, S, 64), mk(1, KVH, S, 64), mk(1, H, S, 64)
+    o, lse = flash_attention_fwd(q, k, v)
+    ro, rlse = ref.flash_attention_ref(q, k, v)
+    got = flash_attention_bwd(q, k, v, ro, rlse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, ro, rlse, do)
+    torch.cuda.synchronize()
+    assert (o.float() - ro.float()).abs().max().item() < TOL[dt]
+    assert (lse - rlse).abs().max().item() < TOL[dt]
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert _scaled_err(a, b) < GRAD_TOL[dt], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("H,KVH", FRONTEND_HEADS)
+def test_cuda_flash_decode_at_the_frontend_heads_matches_plain(dt, H, KVH):
+    """Flash-decode at D=64, 4 lanes of a 4096-slot cache filled to 4096,
+    3000, 1000 and 64 tokens, in the cache's (B,T,KVH,D) layout."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    B, T, D = 4, 4096, 64
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).to(dev, TDT[dt])
+    q = mk(B, H, D)
+    k, v = (mk(B, T, KVH, D).permute(0, 2, 1, 3) for _ in range(2))
+    fills = (4096, 3000, 1000, 64)
+    pos = np.full((B, T), -1, np.int32)
+    for b, n in enumerate(fills):
+        pos[b, :n] = np.arange(n)
+    qpos = np.array([n - 1 for n in fills], np.int32)
+    pos, qpos = torch.from_numpy(pos).to(dev), torch.from_numpy(qpos).to(dev)
+    o = flash_decode(q, k, v, pos, qpos)
+    r = ref.flash_decode_ref(q, k, v, pos, qpos)
+    torch.cuda.synchronize()
+    assert (o.float() - r.float()).abs().max().item() < TOL[dt]
+    assert torch.equal(flash_decode(q, k, v, pos, qpos), o)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_cuda_flash_attention_function_grads(dt):

@@ -14,8 +14,8 @@ replace the compile layer: ``repro_torch.core.engine.build_cell`` and
   (host times aside), and equal SA trajectories;
 * ``space_fingerprint`` differs between the packages and between trace
   device types;
-* an engine over a space whose ``arch`` factor holds an arch the port does
-  not run yet raises ``NotImplementedError`` naming the ROADMAP.
+* an engine is built over every arch of the zoo and every ``grad_compress``
+  value, and over a space whose ``restrict`` narrows its ``arch`` factor.
 """
 import json
 import pathlib
@@ -785,17 +785,21 @@ def test_sa_on_stub_matches_reference(monkeypatch, fidelity):
     assert _sa_fingerprint(a) == _sa_fingerprint(b)
 
 
-# ----------------------------------------------------------- unported archs
-@pytest.mark.parametrize("arch", ["internvl2-1b", "musicgen-medium"])
-def test_unported_arch_in_the_arch_factor_raises(monkeypatch, arch):
+# ------------------------------------------------------------ the whole zoo
+def test_every_arch_and_grad_compress_value_is_taken(monkeypatch):
+    """All 10 archs (the vit and encodec frontends and the MoE archs among
+    them) and every grad_compress value, with no restrict."""
     _stub(monkeypatch)
-    space = SearchSpace(bench_archs(["qwen2-1.5b", arch]), BENCH_SHAPES)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        Engine(space, _meshes(), persistent_cache=False, device="cpu")
+    space = SearchSpace(bench_archs(), BENCH_SHAPES)
+    eng = Engine(space, _meshes(), persistent_cache=False, device="cpu")
+    assert len(eng.space.factors["arch"]) == 10
+    assert {"internvl2-1b", "musicgen-medium"} <= set(eng.space.factors["arch"])
+    assert eng.space.factors["grad_compress"] == ("none", "bf16", "int8")
 
 
 def test_unported_arch_excluded_by_restrict_is_accepted(monkeypatch):
-    """A frontend arch in ``archs``, out of the ``arch`` factor."""
+    """An arch in ``archs``, out of the ``arch`` factor (a frontend arch,
+    which the port now runs too)."""
     _stub(monkeypatch)
     space = SearchSpace(bench_archs(["qwen2-1.5b", "tinyllama-1.1b", "internvl2-1b"]),
                         BENCH_SHAPES, restrict={"arch": ("qwen2-1.5b", "tinyllama-1.1b")})

@@ -229,10 +229,3 @@ def test_lm_loss_matches_reference():
     a = ref_api.lm_loss(jnp.asarray(logits), jnp.asarray(labels))
     b = api.lm_loss(torch.from_numpy(logits), torch.from_numpy(labels))
     assert abs(float(a) - float(b)) < 1e-6
-
-
-@pytest.mark.parametrize("arch", ["internvl2-1b", "musicgen-medium"])
-def test_unported_blocks_raise_naming_roadmap(arch):
-    """The archs still unported (the vit and encodec frontends)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.specs(smoke_config(arch))

@@ -34,10 +34,10 @@ from repro_torch.models import api as papi
 from repro_torch.train import optimizer as popt
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# the non-MoE archs the port runs (the vit and encodec frontends wait for
-# ROADMAP module queue item 4)
-ARCHS = ("deepseek-67b", "internlm2-20b", "qwen2-1.5b", "recurrentgemma-2b",
-         "rwkv6-7b", "tinyllama-1.1b")
+# the non-MoE archs, the vit (internvl2-1b) and encodec (musicgen-medium)
+# frontends included
+ARCHS = ("deepseek-67b", "internlm2-20b", "internvl2-1b", "musicgen-medium", "qwen2-1.5b",
+         "recurrentgemma-2b", "rwkv6-7b", "tinyllama-1.1b")
 PRESETS = ("fsdp", "tp", "ep", "dp")
 SHAPES = ("train_s", "prefill_s", "decode_s")
 
@@ -164,7 +164,8 @@ def test_spec_resolution_and_fallbacks_match_reference_per_leaf(arch):
     assert n_leaves > 24 * 20
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-2b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-2b", "rwkv6-7b",
+                                  "internvl2-1b", "musicgen-medium"])
 def test_build_cell_specs_and_stats_are_the_per_leaf_resolution(arch):
     """The port's build_cell resolves exactly the per-leaf specs (zero-1 on
     the moments) and counts the same fallbacks over the same trees; its
@@ -230,7 +231,8 @@ def test_analytic_floors_match_reference_exactly(arch):
 
 
 def _spaces():
-    archs = ["qwen2-1.5b", "recurrentgemma-2b", "rwkv6-7b", "mixtral-8x7b"]
+    archs = ["qwen2-1.5b", "recurrentgemma-2b", "rwkv6-7b", "mixtral-8x7b", "internvl2-1b",
+             "musicgen-medium"]
     return (rspace.SearchSpace(rbench.bench_archs(archs), rbench.BENCH_SHAPES),
             pspace.SearchSpace(pbench.bench_archs(archs), pbench.BENCH_SHAPES))
 

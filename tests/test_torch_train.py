@@ -302,15 +302,25 @@ def test_compute_grads_refuses_serving_cast_params(smoke):
                           _tb(batch))
 
 
-def test_train_step_options_that_need_a_mesh_raise():
-    cfg = smoke_config("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pts.make_train_step(cfg, RunPolicy(grad_compress="int8"), popt.OptConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pts.make_train_step(cfg, RunPolicy(grad_compress="bf16"), popt.OptConfig(),
-                            mesh=object())
-    # a mesh alone is taken: the arguments' DTensor placements carry the sharding
-    assert callable(pts.make_train_step(cfg, RunPolicy(), popt.OptConfig(), mesh=object()))
+def test_train_step_options_that_need_a_mesh_raise(smoke):
+    """grad_compress without a pod axis (no mesh, or a mesh without "pod")
+    trains as "none" does, as in the JAX package; a mesh alone is taken (the
+    arguments' DTensor placements carry the sharding); an uneven microbatch
+    split raises."""
+    _, pcfg, rp, batch = smoke
+    po = popt.OptConfig(warmup=2)
+    pp = api.from_numpy_params(pcfg, jax.tree.map(np.asarray, rp), "cpu")
+    no_pod = type("Mesh", (), {"shape": {"data": 4, "model": 4}})()
+    runs = []
+    for gc, mesh in (("none", None), ("int8", None), ("bf16", no_pod)):
+        pol = RunPolicy(remat="none", n_microbatch=1, dtype="f32", grad_compress=gc)
+        st = pts.make_init_opt(pcfg, pol, po, mesh)(pp)
+        assert "ef" not in st
+        runs.append(pts.make_train_step(pcfg, pol, po, mesh)(pp, st, _tb(batch)))
+    for p, st, m in runs[1:]:
+        assert float(m["loss"]) == float(runs[0][2]["loss"])
+        assert all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten(p),
+                                                               flatten(runs[0][0])))
     with pytest.raises(ValueError, match="divisible"):
         pts._split_microbatches({"tokens": torch.zeros(3, 4)}, 2)
 
