@@ -180,6 +180,24 @@ Phases (any failure exits non-zero and prints no result line):
               steps): exact launches, the in-model backward check, and one
               f32 step's gradients, kernels on against off, leaf by leaf (the
               projector and the codebook tables among them).
+11b. dryrun (slice 8) — ``chip_smoke.py --dryrun``, a process of its own
+              started after the build, on the host beside every phase up to
+              the corpus: ``python -m repro_torch.launch.dryrun``'s cells on
+              fake cuda tensors over the 16x16 production mesh
+              (``DRYRUN_CELLS``: qwen2-1.5b train_4k under dp in 2
+              microbatches, the microbatch split at production size;
+              rwkv6-7b long_500k; the skip of
+              qwen2-1.5b long_500k), each ``[ok]`` with no op run replicated
+              outside ``parity.REPLICATED_OPS``, or the expected skip, with
+              its host seconds.
+11c. launch — ``examples/train_lm.py``'s llama-100m at its published width
+              (f32, kernels on): an uninterrupted run and a run that saves
+              and one that resumes, ending in checkpoints equal bit for bit,
+              with exact kernel launches; then qwen2-1.5b's full-width f32
+              params through ``CheckpointManager`` (async) and back, equal
+              bit for bit, the save's return, write and restore timed.
+11d. examples — ``quickstart``, ``serve_lm`` and ``elastic_train`` on the
+              card, a process each, each exiting 0.
 12. report  — each phase's seconds, one JSON line of kernels (the head-dim-32
               and head-dim-64 rows under ``d32`` and ``d64``), the nvidia-smi
               line, and the result line ``{"ok": true, "device": {...}}``.
@@ -2936,6 +2954,181 @@ def measure_phase():
     return json.loads(proc.stdout.strip().splitlines()[-1])["measure"]
 
 
+# ------------------------------------------------ slice 8: dry-run, launch, examples
+
+# (arch, shape, mesh, extra flags, expected status) of the dry-run phase's
+# production cells: the repaired microbatch split at production size (dp
+# shards train_4k's 256 rows over all 256 ranks; 2 microbatches of 128 rows
+# go on the data axis: the default 8 trace in ~710 s on the card's host,
+# beyond the phases the process runs beside), a subquadratic arch's
+# long_500k decode, and the skip of a full-attention arch there
+DRYRUN_CELLS = (
+    ("qwen2-1.5b", "train_4k", "single", ("--preset", "dp", "--microbatch", "2"), "ok"),
+    ("rwkv6-7b", "long_500k", "single", (), "ok"),
+    ("qwen2-1.5b", "long_500k", "single", (), "skipped"),
+)
+
+
+def dryrun_main():
+    """``chip_smoke.py --dryrun``, the dry-run phase's own process: each of
+    ``DRYRUN_CELLS`` through ``python -m repro_torch.launch.dryrun``'s
+    ``main`` on fake cuda tensors over the 16x16 mesh of the fake process
+    group (a failed trace, or an op run replicated outside
+    ``parity.REPLICATED_OPS``, exits 1), with its status and host seconds.
+    The last line is a JSON summary."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the dry-run traces on cuda tensors")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
+        for arch, shape, mesh, flags, want in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh, "--device", "cuda",
+                         "--out", out, *flags])
+            res = json.loads((Path(out) / f"{arch}__{shape}__{mesh}.json").read_text())
+            row = {"cell": " ".join((arch, shape, mesh) + flags), "status": res["status"],
+                   "host_s": time.perf_counter() - t0}
+            if res["status"] != want:
+                fail(f"dryrun: {row['cell']} is {res['status']}, expected {want}")
+            if want == "ok":
+                row.update(trace_s=res["compile_s"], dominant=res["roofline"]["dominant"],
+                           useful=res["roofline"]["useful_flops_ratio"],
+                           peak_gib=res["memory"]["peak_bytes"] / 2**30,
+                           replicated_ops=res["replicated_ops"])
+            print(f"dryrun {json.dumps(row)}", flush=True)
+            rows.append(row)
+    print(json.dumps({"dryrun": rows}))
+
+
+def dryrun_start():
+    """Start ``dryrun_main`` in a process of its own; it is stopped when this
+    script exits before it ends."""
+    import atexit
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def dryrun_finish(proc):
+    out, err = proc.communicate(timeout=1000)
+    lines = out.splitlines()
+    for line in lines[:-1] if proc.returncode == 0 else lines:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        print(err[-6000:], file=sys.stderr, flush=True)
+        fail("dryrun: the phase failed")
+    return json.loads(lines[-1])["dryrun"]
+
+
+LAUNCH_STEPS = 4          # the uninterrupted run; the other stops after 2 and resumes
+
+
+def launch(dev):
+    """``examples/train_lm.py``'s llama-100m preset at its published width
+    on the card (seq 256, batch 16, 2 microbatches, remat "dots", f32,
+    kernels on): ``LAUNCH_STEPS`` steps in one run, and the same steps as a
+    run of 2 that saves and a ``--resume`` run of the rest.  Both end in a
+    checkpoint of the same step, which must be equal bit for bit; each run's
+    kernel launches must be exact (the forward twice a layer and microbatch,
+    "dots" recomputing it, each backward kernel once).  Then qwen2-1.5b's
+    full-width f32 params go through ``CheckpointManager`` (async) and back,
+    equal bit for bit, with the save's return, the write and the restore
+    timed."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.module import flatten
+
+    cfg = train_lm.PRESETS["100m"]
+    per_step = {"flash_attention_fwd": cfg.n_layers * 2 * 2,
+                "flash_attention_bwd_dq": cfg.n_layers * 2,
+                "flash_attention_bwd_dkv": cfg.n_layers * 2, "flash_decode": 0}
+    out = {"train_lm_launches": {}}
+    with tempfile.TemporaryDirectory(prefix="launch_") as tmp:
+        runs = (("uninterrupted", "a", LAUNCH_STEPS, ()), ("first", "b", 2, ()),
+                ("resumed", "b", LAUNCH_STEPS - 2, ("--resume",)))
+        for tag, d, steps, flags in runs:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            train_lm.main(["--preset", "100m", "--steps", str(steps), "--ckpt-dir",
+                           str(Path(tmp) / d), "--device", "cuda", *flags])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            print(f"launch: train_lm 100m {tag} run of {steps} steps in "
+                  f"{time.perf_counter() - t0:.2f} s; launches {counts}", flush=True)
+            for name, n in per_step.items():
+                if counts[name] != steps * n:
+                    fail(f"launch: {name} launched {counts[name]} times in {steps} steps, "
+                         f"expected {steps} x {n}")
+            out["train_lm_launches"][tag] = counts
+        a = np.load(Path(tmp) / "a" / f"step_{LAUNCH_STEPS}" / "arrays.npz")
+        b = np.load(Path(tmp) / "b" / f"step_{LAUNCH_STEPS}" / "arrays.npz")
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        if sorted(a.files) != sorted(b.files) or differ:
+            fail(f"launch: the resumed run's checkpoint differs from the uninterrupted "
+                 f"run's at {differ[:6]} ({len(a.files)} arrays)")
+        print(f"launch: the resumed run's step-{LAUNCH_STEPS} checkpoint equals the "
+              f"uninterrupted run's, bit for bit ({len(a.files)} arrays)", flush=True)
+
+        q = get_config("qwen2-1.5b")
+        params = api.init(q, seed=0, device=dev)
+        nbytes = sum(t.numel() * t.element_size() for _, t in flatten(params))
+        cm = CheckpointManager(str(Path(tmp) / "qwen"), keep_last=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cm.save(1, params)
+        t_return = time.perf_counter() - t0
+        cm.wait()
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meta, got = cm.restore_latest(params)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        bad = [k for (k, x), (_, y) in zip(flatten(params), flatten(got))
+               if x.dtype != y.dtype or x.device != y.device or not torch.equal(x, y)]
+        if meta is None or meta["step"] != 1 or bad:
+            fail(f"launch: qwen2-1.5b's params restored unequal: {bad[:6]}")
+        out["qwen_ckpt"] = {"gb": nbytes / 1e9, "save_return_s": t_return,
+                            "write_s": t_write, "restore_s": t_restore}
+        print(f"launch: qwen2-1.5b full-width f32 params ({nbytes / 1e9:.2f} GB) saved "
+              f"async: save returns in {t_return:.2f} s, written in {t_write:.2f} s, "
+              f"restored to the card in {t_restore:.2f} s, equal bit for bit", flush=True)
+        del params, got
+    return out
+
+
+EXAMPLES = ("quickstart", "serve_lm", "elastic_train")
+
+
+def examples_phase():
+    """The port's examples on the card, each in a process of its own, all at
+    once, with their defaults: each must exit 0.  (Their smoke configs have
+    head dim 16, below the attention kernels' 32-256: they run the plain
+    attention, as the reference's examples do.)"""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", f"repro_torch.examples.{name}",
+                                     "--device", "cuda"], cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name in EXAMPLES}
+    seconds = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        seconds[name] = time.perf_counter() - t0
+        tail = out.strip().splitlines()[-3:]
+        print(f"examples: {name} exited {proc.returncode} after {seconds[name]:.1f} s; "
+              f"last lines {tail}", flush=True)
+        if proc.returncode != 0:
+            print(err[-4000:], file=sys.stderr, flush=True)
+            fail(f"examples: {name} failed")
+    return seconds
+
+
 SEARCH_BUDGET = 24
 SEARCH_WORKERS = 4
 
@@ -3041,6 +3234,10 @@ def main():
                 print(f"ptxas {name} {kernel}: {w}", flush=True)
 
     phase_seconds = {}
+    # the dry-run traces on the host only, in a process of its own, from here
+    # to the measure phase's end (its qwen2-1.5b train cell takes minutes)
+    t_dry = time.perf_counter()
+    dry = dryrun_start()
     phase("kernels")
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -3106,7 +3303,15 @@ def main():
               f"measure phase and the corpus replay)", flush=True)
         phase("corpus")
         replayed = corpus_finish(replay)
-    phase_seconds["measure + corpus"] = time.perf_counter() - t_phase
+        phase_seconds["measure + corpus"] = time.perf_counter() - t_phase
+    phase("dryrun")
+    t_phase = time.perf_counter()
+    dried = dryrun_finish(dry)
+    phase_seconds["dryrun (waited)"] = time.perf_counter() - t_phase
+    print(f"dryrun: {len(dried)} production cells in {time.perf_counter() - t_dry:.1f} s "
+          f"(beside the phases since the build): "
+          f"{json.dumps({r['cell']: [r['status'], round(r['host_s'], 1)] for r in dried})} "
+          f"(status, host seconds)", flush=True)
     print(f"corpus: {replayed['entries']} entries replayed in {replayed['seconds']:.1f} s "
           f"(beside the measure phase), verdicts (kind_ok, controls_ok) "
           f"{json.dumps(replayed['verdicts'])}", flush=True)
@@ -3232,6 +3437,20 @@ def main():
                 for err in ("max_scaled_err", "max_rel_err"):
                     row["d64"][f"{tag}_in_model_{err}"] = max(in_model_fe[g][err]
                                                              for g in grads)
+    phase("launch")
+    t_phase = time.perf_counter()
+    launched = launch(dev)
+    torch.cuda.empty_cache()
+    phase_seconds["launch"] = time.perf_counter() - t_phase
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        row = fa if name == "flash_attention_fwd" else bwd[name]
+        row["d64"]["train_lm_100m_launches"] = {
+            tag: c[name] for tag, c in launched["train_lm_launches"].items()}
+
+    phase("examples")
+    t_phase = time.perf_counter()
+    examples_phase()
+    phase_seconds["examples"] = time.perf_counter() - t_phase
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_seconds.items()})}",
           flush=True)
 
@@ -3364,6 +3583,8 @@ if __name__ == "__main__":
         measure_main()
     elif sys.argv[1:] == ["--measure-frontends"]:
         measure_frontends_main()
+    elif sys.argv[1:] == ["--dryrun"]:
+        dryrun_main()
     elif sys.argv[1:2] == ["--step-times"]:
         step_times_main(sys.argv[2] if len(sys.argv) > 2 else ROOT / "src")
     else:

@@ -57,23 +57,13 @@ _MOE = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
 # (Under tp and ep, qwen2's 12 query heads over 2 KV heads on 4 model ranks
 # once ran attention replicated on the model axis, at 0.54-0.59x the
 # reference's ratio; the trace's GQA form, ``xlaforms._group_heads``, keeps
-# it sharded on the heads.)
+# it sharded on the heads.  The corpus's mixtral-8x7b A2 witness, 8
+# microbatches of 4 rows on 16 dp ranks, once ran each split replicated, at
+# 0.3022 against 0.8004; the trace's split, ``xlaforms._microbatches``, keeps
+# each microbatch sharded as XLA does: 0.8004.)
 # A key may also be a corpus point's (``corpus_key``), where its point_key
 # is shared by a point with another microbatch count.
-USEFUL_RATIO_DIFFERENCES: dict = {
-    ("mixtral-8x7b", "train_s", "dp", "single", "none", True, True, "witness", 8):
-        (0.3022, 0.8004, "8 microbatches of 4 rows on the 16 dp ranks: each split "
-         "runs replicated (see _MICRO)"),
-}
-
-_MICRO = ("the microbatch split of the batch (B rows -> n microbatches of B/n) "
-          "where the batch is sharded over ranks that do not divide n: DTensor's "
-          "view rule keeps a split dim's sharding on its leading part only, so it "
-          "refuses the view or plans it over-sharded; the split then runs "
-          "replicated (the batch is all-gathered) and each microbatch is sharded "
-          "again only where the rules' batch axes divide its rows, where XLA "
-          "shards the inner part and reshards it with all-to-alls and "
-          "collective-permutes (see MICROBATCH_COUNTERS)")
+USEFUL_RATIO_DIFFERENCES: dict = {}
 
 # ops the trace may run replicated -> ((point class, cause), ...): the op may
 # run replicated only at points of one of its classes.  A class maps "arch"
@@ -81,24 +71,29 @@ _MICRO = ("the microbatch split of the batch (B rows -> n microbatches of B/n) "
 # shape's kind) and "microbatched" (n_microbatch > 1) to the values it admits.
 REPLICATED_OPS = {
     "aten.view.default": (
-        ({"kind": ("train",), "microbatched": (True,)}, _MICRO),
         ({"arch": _MOE, "kind": ("decode",), "preset": ("dp", "fsdp", "tp", "ep")},
          "MoE's view of a decode step's tokens as groups, (16,1,D) -> (2,8,D) (16 lanes "
          "over 8 experts make 2 groups of 8): the lanes are sharded over 4 or 16 ranks, "
          "more than there are groups, and DTensor cannot split a mesh axis between "
          "the group and the token dims as XLA tiles them; the view runs replicated "
          "(the 16 lanes' activations, 8 KB, are gathered)"),
-        ({"arch": _MOE, "kind": ("prefill",), "preset": ("dp",)},
-         "MoE's view of the groups back to (B,S,D), (32,256,D) -> (8,1024,D): dp shards "
-         "the 32 groups over all 16 ranks, the 8 prefill rows only over the 4 of the "
-         "data axis, and DTensor cannot move the excess onto the sequence as XLA does; "
-         "the view runs replicated (the output is gathered on the model axis)"),
-        ({"kind": ("train",), "microbatched": (True,)},
-         "a view that merges a dim sharded behind an unsharded one, which DTensor "
-         "plans strided-sharded (no registered product's strategy takes that, and "
-         "a fake trace cannot gather it): in the backward of a microbatch whose "
-         "rows no batch axis divides, where DTensor shards the head dim instead "
-         "(qwen2-1.5b-bench train_s, fsdp, multi mesh, 16 microbatches)")),
+        ({"arch": _MOE, "kind": ("train",), "microbatched": (True,)},
+         "MoE train microbatches where a view of the sequence or of the groups is not "
+         "yet a form: with 1-2 rows a microbatch (16 or 32 microbatches of the bench's "
+         "32 rows) the sequence carries the batch's ranks (xlaforms._microbatches), and "
+         "the blocked or local attention's view of it as 64-step blocks would split one "
+         "mesh dim's shards between the block and step dims (pod x data onto 4 blocks), "
+         "which DTensor cannot place; under fsdp the groups come back with the "
+         "embedding dim sharded and the groups strided-sharded, which xlaforms._ungroup "
+         "does not take.  The views run replicated (the pairs file's points 103-104 and "
+         "215-216 gain A3: attention computed whole on each rank)"),
+        ({"arch": ("recurrentgemma-2b",), "kind": ("train",), "preset": ("fsdp",)},
+         "the backward of the RG-LRU's associative scan: DTensor places a level's "
+         "gradient sharded on the sequence over the model axis (the forward shards the "
+         "width there), and the view that splits the last levels' steps into pairs, "
+         "fewer steps than model ranks ((B,4,W) -> (B,2,2,W) on 4 ranks at the bench, "
+         "(B,16,W) -> (B,8,2,W) on 16 in production), runs replicated: a few steps of "
+         "B x W f32 are gathered, where XLA reshards them")),
     "prims.rev.default": (
         ({"kind": ("train",)},
          "torch 2.11's DTensor has no rule for flip (the cumsum backward), which "
@@ -174,11 +169,6 @@ KIND_DIFFERENCES = {
          "the reference sits just over A1's 0.25; the trace's bytes count every "
          "elementwise output (an eager trace has no fusion), which lowers the "
          "roofline efficiency of this memory-bound step"),
-    ("mixtral-8x7b", "train_s", "dp", "single", "none", True, True, "witness", 8):
-        (("A1", "A2", "A3"), ("A1", "A2"), "perf.useful_flops_ratio", 0.3022, 0.8004,
-         "the entry's verdict (A2) holds; 8 microbatches of 4 rows on the 16 "
-         "ranks dp shards the batch over: each microbatch's split runs "
-         "replicated (see _MICRO), so the step computes 2.6x XLA's FLOPs"),
 }
 
 
@@ -200,6 +190,12 @@ PAIR_STORED_DIFFERENCES = {
 # (port value (CPU trace, torch 2.13), today's reference value)}, cause), at
 # the points tests/test_torch_search.py measures
 PAIR_KIND_DIFFERENCES = {
+    45: (("A3",), ("A1", "A3"), {"perf.roofline_efficiency": (0.25906, 0.19831)},
+         "mixtral-8x7b-bench train_s under ep on the single mesh, 4 microbatches: a "
+         "memory-bound step whose trace bytes, a rule for XLA's fusion, are 0.77x XLA's "
+         "(5.02e9 against 6.56e9 a device), so the port's roofline efficiency sits just "
+         "above A1's 0.25; while the microbatch split ran replicated, its gathers and "
+         "copies of the batch added 0.37e9 bytes and hid this (0.24111)"),
     5: (("A1",), (), {"perf.roofline_efficiency": (0.24576, 0.37272)},
         "qwen2-1.5b-bench prefill_s under tp on the multi mesh, blocked attention: the "
         "trace's bytes count every elementwise output (an eager trace has no fusion), "
@@ -219,18 +215,24 @@ PAIR_KIND_DIFFERENCES = {
 # qwen2-1.5b-bench train_s under dp on the multi mesh (the pairs file's point
 # 149: remat none, sgdm, seq_shard, zero1, batch 32 on 32 ranks) by
 # n_microbatch -> {counter: (port value (CPU trace, torch 2.13), today's
-# reference value)}.  At 1 the FLOPs agree.  At 4 each microbatch of 8 rows
-# is sharded over pod x data and replicated over model in both; XLA moves
-# 2.1x the port's wire bytes resharding the split (its scan over a sharded
-# dim: all-to-alls and collective-permutes).  At 16 a microbatch has 2 rows,
-# which no batch axis of the rules divides: DTensor runs it replicated on all
-# 32 ranks (the gradients are then replicated, and nothing is all-reduced),
-# where XLA's partitioner still splits it.  _MICRO is the cause at 4 and 16.
+# reference value)}.  At 1 the FLOPs agree.  XLA tiles the (n, 32/n) reshape
+# of the 32 ranks as n ranks on n and 32/n on the rows (the minor ones),
+# all-gathers n before its loop, and keeps each microbatch's rows on those
+# 32/n ranks, replicated on the other n (``xlaforms._microbatches``).  At 4
+# each microbatch of 8 rows is sharded over 8 ranks and replicated over 4 in
+# both (pod x data in the port); XLA moves 1.8x the port's wire bytes.  At
+# 16 a microbatch has 2 rows: XLA puts them on the low bit of the model
+# axis, half an axis, and splits the weights' input dim over data inside
+# its loop (from the ZeRO-1 state's sharding; its dots are 256 tokens by a
+# quarter of the width), 5.4x the ideal FLOPs; no mesh axis of the batch
+# rules divides 2 rows, so the port's microbatch is whole on all 32 ranks
+# (32x: its gradients are replicated, and nothing is all-reduced).  That
+# point stays listed: the port cannot shard on half a mesh axis.
 MICROBATCH_COUNTERS = {
     1: {"perf.useful_flops_ratio": (0.92759, 0.92759),
         "diag.collective_wire_bytes": (9.3406e7, 6.5616e7)},
-    4: {"perf.useful_flops_ratio": (0.23189, 0.22459),
-        "diag.collective_wire_bytes": (1.3748e8, 2.8497e8)},
+    4: {"perf.useful_flops_ratio": (0.23190, 0.22459),
+        "diag.collective_wire_bytes": (1.6102e8, 2.8497e8)},
     16: {"perf.useful_flops_ratio": (0.028987, 0.17287),
          "diag.collective_wire_bytes": (63488.0, 4.1256e8)},
 }

@@ -147,7 +147,7 @@ def spec_for(shape: Sequence[int], axes: Sequence[str | None],
     return tuple(out)
 
 
-def _entry_axes(entry) -> tuple:
+def entry_axes(entry) -> tuple:
     if entry is None or entry is UNCONSTRAINED:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
@@ -159,7 +159,7 @@ def placements_for(spec: Sequence, mesh, current=None) -> tuple:
     unless ``current`` (the tensor's placements) shards an UNCONSTRAINED dim
     on it, which is kept."""
     from torch.distributed.tensor import Replicate, Shard
-    owner = {m: d for d, entry in enumerate(spec) for m in _entry_axes(entry)}
+    owner = {m: d for d, entry in enumerate(spec) for m in entry_axes(entry)}
     free = {d for d, entry in enumerate(spec) if entry is UNCONSTRAINED}
     out = []
     for i, name in enumerate(mesh.axis_names):
@@ -225,6 +225,12 @@ def use_rules(mesh, rules: Mapping, log: list | None = None):
         yield
     finally:
         _CTX.mesh, _CTX.rules, _CTX.log = prev
+
+
+def active():
+    """(mesh, rules) of the innermost ``use_rules`` (less the axes of an
+    enclosing ``manual_axes``), or (None, None) outside it."""
+    return _CTX.mesh, _CTX.rules
 
 
 @dataclasses.dataclass(frozen=True)

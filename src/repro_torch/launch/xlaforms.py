@@ -41,7 +41,23 @@ into the forms the reference's program has:
   the K/V heads are repeated to the query heads (``attention.kv_for``):
   attention stays sharded on the heads, as XLA tiles (KV, G) jointly.  A
   single decode token is gathered instead, and attends sharded on the
-  cache's sequence.
+  cache's sequence;
+* the train step's split of a batch into microbatches
+  (``train_step.microbatches``) keeps each microbatch sharded as XLA's
+  loop does, from one redistribution of the batch (``_microbatches``),
+  where DTensor's view of a batch sharded over more ranks than a
+  microbatch has rows would run replicated;
+* the RG-LRU gates' view of a width sharded over more ranks than divide
+  its blocks gathers the width first and slices the gates' outputs back
+  (``_block_view``, ``_block_unview``), so that only the gates, not the
+  block after them, run whole on each rank;
+* rwkv6's fold of a sequence-parallel WKV's shards into rows, where both
+  the rows and the shards are sharded, keeps each rank's rows in place
+  (``_fold_shards``, ``_unfold_shards``), as XLA's reshape does; and
+  MoE's views of a microbatch whose sequence is sharded as groups and
+  back, each rank's tokens its own groups (``_group_tokens``), the groups
+  gathered back only on the mesh dims that shard them and not the rows or
+  sequence (``_ungroup``).
 
 ``register_strategies`` adds ``dot_general``'s rule, and a rule for
 ``index_put`` that models GSPMD where DTensor's own differs or fails
@@ -56,6 +72,7 @@ Nothing here runs outside a trace: serving and training call torch's ops.
 from __future__ import annotations
 
 import functools
+import math
 import string
 from typing import Optional
 
@@ -65,7 +82,12 @@ from torch.overrides import TorchFunctionMode
 from torch.utils.flop_counter import register_flop_formula
 
 from ..models import attention as attn
+from ..models import moe
+from ..models import rglru
+from ..models import rwkv6 as rwkv
 from ..models import transformer as tfm
+from ..train import train_step
+from . import sharding
 
 # ------------------------------------------------------------ dot_general
 
@@ -409,13 +431,198 @@ def _group_heads(q, n_kv):
     return q.unsqueeze(3)
 
 
+def _microbatches(a, n, moe_groups=0):
+    """The ``n`` microbatches of a batch DTensor, as XLA keeps each in the
+    loop over microbatches: the rows sharded over the batch axes that the
+    rules resolve for a microbatch (the axes that divide its rows), and the
+    batch's other ranks either moved onto the sequence or replicated.
+
+    XLA tiles the (n, B/n) reshape of a batch on R ranks as R_n ranks on n
+    and R/R_n on the rows, all-gathers n before its loop slices it, and
+    lets the loop body reshard each slice to what the step's constraints
+    ask for: the rows on the axes that divide them, the rest replicated
+    (a dense step computes each microbatch on the spare ranks again).  With
+    MoE, the layers' groups (B/n·S tokens in ``moe_groups`` groups) are
+    constrained over the batch axes; where those begin with the rows'
+    axes, XLA carries the others back through the (B, S) -> groups reshape
+    onto the sequence, and the whole microbatch stays sharded on every
+    rank.  Here: one redistribution of the batch to that layout (the spare
+    axes gathered, or moved onto the sequence by an all-to-all), then each
+    rank's own slices of its rows.  (Each rank's i-th block of rows, where
+    XLA takes rows i·B/n onward: the same partition of the batch into n
+    microbatches for every rank at once, as a data-parallel program splits
+    its local batch; only shapes and collectives enter the counters.)"""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, rules = sharding.active()
+    if not _dtensor(a) or mesh is None:
+        return NotImplemented
+    rows = a.shape[0] // n
+    row_axes = sharding.entry_axes(sharding.spec_for((rows,), ("batch",), rules, mesh)[0])
+    seq_axes: tuple = ()
+    if moe_groups and a.dim() > 1:
+        group_axes = sharding.entry_axes(
+            sharding.spec_for((moe_groups,), ("batch",), rules, mesh)[0])
+        rest = group_axes[len(row_axes):]
+        if group_axes[:len(row_axes)] == row_axes and a.shape[1] % math.prod(
+                mesh.shape[m] for m in rest) == 0:
+            seq_axes = rest
+    dm = a.device_mesh
+    want = [Shard(0) if m in row_axes else Shard(1) if m in seq_axes else Replicate()
+            for m in dm.mesh_dim_names]
+    if list(a.placements) != want:
+        a = a.redistribute(dm, want)
+    local = a.to_local()
+    return tuple(_from_local(part, dm, want, (rows,) + tuple(a.shape[1:]))
+                 for part in local.reshape((n, local.shape[0] // n)
+                                           + tuple(local.shape[1:])).unbind(0))
+
+
+def _block_view(xb, n_blocks):
+    """The RG-LRU gates' view of a DTensor's width W as (n_blocks, W /
+    n_blocks), where the mesh splits W over more ranks than divide the
+    blocks (recurrentgemma-2b's 10 blocks on 16 model ranks): W gathered on
+    those mesh dims first, so the block-diagonal gates run whole on each
+    rank and their outputs, sliced back where they meet the sharded width,
+    leave the rest of the block sharded.  (XLA splits the 16 ranks 2 x 8
+    over blocks and width and computes half the blocks a rank, twice as
+    few gate products as here; DTensor cannot split one mesh dim over two
+    tensor dims, and would run the view, and all that follows it,
+    replicated.)"""
+    from torch.distributed.tensor import Replicate
+    if not _dtensor(xb):
+        return NotImplemented
+    last = xb.dim() - 1
+    ways = math.prod(size for size, p in zip(xb.device_mesh.shape, xb.placements)
+                     if p.is_shard(last))
+    if ways == 1 or n_blocks % ways == 0:
+        return NotImplemented
+    xb = xb.redistribute(xb.device_mesh, [Replicate() if p.is_shard(last) else p
+                                          for p in xb.placements])
+    return xb.reshape(xb.shape[:-1] + (n_blocks, xb.shape[-1] // n_blocks))
+
+
+def _block_unview(g, like):
+    """The gates' output back to the width of ``like``, laid out as
+    ``like`` is: where ``_block_view`` gathered the width, the (replicated)
+    output is sliced back to ``like``'s shards, so that the gradient reaching
+    the gates is gathered (its view back into blocks would otherwise run
+    replicated)."""
+    if not (_dtensor(g) and _dtensor(like)):
+        return NotImplemented
+    last = like.dim() - 1
+    gathered = [p.is_shard(last) and q.is_replicate()
+                for p, q in zip(like.placements, g.placements)]
+    if not any(gathered):
+        return NotImplemented
+    out = g.reshape(like.shape)
+    return out.redistribute(out.device_mesh, like.placements)
+
+
+def _fold_shards(x):
+    """rwkv6's fold of (B, G, ...) into (B*G, ...) where both B and G are
+    sharded (fsdp: B on the data axes, the sequence shards G on the model
+    axis): each rank's local rows folded in place, the merged dim sharded on
+    both sets of mesh dims.  XLA's reshape is free there (it permutes the
+    device order of the merged dim's tiles); DTensor cannot order one dim's
+    shards so, and would run the view replicated.  (The merged dim's global
+    order is each rank's (b, g) rows, not b·G + g: only shapes and
+    collectives enter the counters, and ``_unfold_shards`` undoes it.)"""
+    from torch.distributed.tensor import Shard
+    if not _dtensor(x) or x.dim() < 3 or not (_sharded_on(x, 0) and _sharded_on(x, 1)):
+        return NotImplemented
+    pl = [Shard(0) if p.is_shard(0) or p.is_shard(1) else
+          Shard(p.dim - 1) if p.is_shard() else p for p in x.placements]
+    local = x.to_local()
+    local = local.reshape((local.shape[0] * local.shape[1],) + tuple(local.shape[2:]))
+    return _from_local(local, x.device_mesh, pl,
+                       (x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def _unfold_shards(x, like):
+    """The inverse of ``_fold_shards``: (B*G, ...) back to (B, G, ...) as
+    ``like`` (the tensor that was folded) shards B and G."""
+    from torch.distributed.tensor import Shard
+    if not (_dtensor(x) and _dtensor(like)) or not (_sharded_on(like, 0)
+                                                     and _sharded_on(like, 1)):
+        return NotImplemented
+    folded = [p.is_shard(0) or p.is_shard(1) for p in like.placements]
+    if [p.is_shard(0) for p in x.placements] != folded:
+        return NotImplemented
+    pl = [Shard(1) if q.is_shard(1) else Shard(0) if q.is_shard(0) else
+          Shard(p.dim + 1) if p.is_shard() else p
+          for p, q in zip(x.placements, like.placements)]
+    lb, lg = like.to_local().shape[:2]
+    local = x.to_local()
+    local = local.reshape((lb, lg) + tuple(local.shape[1:]))
+    return _from_local(local, x.device_mesh, pl, tuple(like.shape[:2]) + tuple(x.shape[1:]))
+
+
+def _group_tokens(x, n_groups):
+    """MoE's view of (B, S, D) tokens as (G, Tg, D) groups where the
+    sequence is sharded too (the rows' mesh dims first, whole groups in
+    each rank's sequence block): each rank's tokens are its own groups
+    (rank (d, m) holds the groups of row block d and sequence block m,
+    which is G sharded over (d, m) in mesh order), so the view is local,
+    as XLA's reshape is.  DTensor flattens a dim sharded behind another
+    only strided, or refuses it (torch 2.11)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not _dtensor(x) or x.dim() != 3 or not _sharded_on(x, 1):
+        return NotImplemented
+    dims = [p.dim for p in x.placements if p.is_shard()]
+    lb, ls, d = x.to_local().shape
+    tg = x.shape[0] * x.shape[1] // n_groups
+    if dims != sorted(dims) or any(k > 1 for k in dims) or ls % tg:
+        return NotImplemented
+    pl = [Shard(0) if p.is_shard() else Replicate() for p in x.placements]
+    return _from_local(x.to_local().reshape(lb * ls // tg, tg, d), x.device_mesh, pl,
+                       (n_groups, tg, x.shape[2]))
+
+
+def _ungroup(y, x):
+    """MoE's groups (G, Tg, D), G sharded over mesh dims, back to the
+    (B, S, D) layout of ``x``, whose rows and sequence are sharded (the
+    rows' mesh dims first) with whole groups in each rank's sequence block:
+    G gathered on the mesh dims that shard it but not ``x`` (as XLA
+    reshards there), then each rank's groups are its own rows' sequence
+    block (rank (d, m) holds the groups of row block d and sequence block
+    m) and the view is local, as XLA's reshape is.  DTensor cannot split
+    G's shards over two dims, and would run the view replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not (_dtensor(y) and _dtensor(x)) or x.dim() != 3 or not _sharded_on(y, 0):
+        return NotImplemented
+    dims = [p.dim for p in x.placements if p.is_shard()]
+    lb, ls, _ = x.to_local().shape
+    if dims != sorted(dims) or any(d > 1 for d in dims) or ls % y.shape[1] \
+            or any(p.is_shard() and p.dim > 0 for p in y.placements):
+        return NotImplemented
+    want = [Shard(0) if p.is_shard() else Replicate() for p in x.placements]
+    if any(w.is_shard() and not p.is_shard(0) for w, p in zip(want, y.placements)):
+        return NotImplemented
+    if list(y.placements) != want:
+        y = y.redistribute(y.device_mesh, want)
+    local = y.to_local()
+    return _from_local(local.reshape(lb, ls, local.shape[-1]), x.device_mesh,
+                       list(x.placements), tuple(x.shape))
+
+
+def _from_local(local, dm, placements, shape):
+    from torch.distributed.tensor import DTensor
+    stride = tuple(math.prod(shape[k + 1:]) for k in range(len(shape)))
+    return DTensor.from_local(local, dm, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
 _REWRITES = {
     torch.matmul: _matmul, torch.Tensor.matmul: _matmul, torch.Tensor.__matmul__: _matmul,
     torch.einsum: _einsum,
     torch.log_softmax: _log_softmax, torch.Tensor.log_softmax: _log_softmax,
     torch.gather: _gather, torch.Tensor.gather: _gather,
     torch.Tensor.__getitem__: _getitem, F.pad: _pad,
-    attn.group_heads: _group_heads,
+    attn.group_heads: _group_heads, train_step.microbatches: _microbatches,
+    rglru.block_view: _block_view, rglru.block_unview: _block_unview,
+    rwkv.fold_shards: _fold_shards,
+    rwkv.unfold_shards: _unfold_shards, moe.group_tokens: _group_tokens,
+    moe.ungroup: _ungroup,
 }
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 from .layers import act_fn
 from .module import ParamSpec
@@ -99,6 +100,32 @@ def _combine(out_e, idx, T):
     return y.scatter_add(1, tok[..., None].expand_as(ix), y_slot * w_slot[..., None])
 
 
+def group_tokens(x, n_groups: int):
+    """(B, S, D) tokens as (G, T/G, D) groups, each of whole sequence
+    chunks of one row.
+
+    While a cell is traced, where ``x``'s sequence is sharded too (a dp
+    microbatch whose spare ranks carry its sequence), the trace's forms
+    (``launch/xlaforms.py``) view each rank's tokens in place."""
+    if has_torch_function((x,)):
+        return handle_torch_function(group_tokens, (x,), x, n_groups)
+    B, S, D = x.shape
+    return x.reshape(n_groups, B * S // n_groups, D)
+
+
+def ungroup(y, x):
+    """The groups' (G, Tg, D) tokens back in the (B, S, D) layout of ``x``.
+
+    While a cell is traced, where ``x``'s rows and sequence are sharded over
+    the mesh dims that shard the groups, in the same order (a dp microbatch
+    whose spare ranks carry its sequence), the trace's forms
+    (``launch/xlaforms.py``) keep each rank's groups in place: they are its
+    rows' sequence block."""
+    if has_torch_function((y, x)):
+        return handle_torch_function(ungroup, (y, x), y, x)
+    return y.reshape(x.shape)
+
+
 def apply_moe(p, x, *, top_k: int, act: str, capacity_factor: float = 1.25,
               n_groups: int = 32):
     """x: (B,S,D) -> (out (B,S,D), aux dict with router stats)."""
@@ -107,8 +134,7 @@ def apply_moe(p, x, *, top_k: int, act: str, capacity_factor: float = 1.25,
     E = p["router"].shape[-1]
     G, cap = groups_and_capacity(T, E, top_k, capacity_factor, n_groups)
     Tg = T // G
-    xg = x.reshape(G, Tg, D)
-    xg = maybe_constrain(xg, ("batch", None, "act_embed"))
+    xg = maybe_constrain(group_tokens(x, G), ("batch", None, "act_embed"))
 
     buf, idx, lb = _dispatch_indices(p["router"], xg, top_k=top_k, cap=cap, E=E)
     # (G, E, C, D): G over data axes, E over model if divisible (EP)
@@ -124,4 +150,4 @@ def apply_moe(p, x, *, top_k: int, act: str, capacity_factor: float = 1.25,
     y = _combine(out_e, idx, Tg)
     y = maybe_constrain(y, ("batch", None, "act_embed"))
     aux = {"lb_loss": lb.mean(), "dropped_frac": 1.0 - idx[2].float().mean()}
-    return y.reshape(B, S, D), aux
+    return ungroup(y, x), aux

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..kernels.rglru_scan import rglru_scan
 from ..launch.sharding import maybe_constrain
@@ -37,16 +38,33 @@ def rglru_specs(d: int, width: int, n_blocks: int):
     }
 
 
+def block_view(xb, n_blocks: int):
+    """(..., W) as (..., n_blocks, W / n_blocks): the gates' blocks.
+
+    While a cell is traced on a mesh that splits W over more ranks than
+    divide the blocks (recurrentgemma-2b's 10 blocks on a model axis of 16),
+    the trace's forms (``launch/xlaforms.py``) gather W first."""
+    if has_torch_function((xb,)):
+        return handle_torch_function(block_view, (xb,), xb, n_blocks)
+    return xb.reshape(xb.shape[:-1] + (n_blocks, xb.shape[-1] // n_blocks))
+
+
+def block_unview(g, like):
+    """The gates' (..., n_blocks, W / n_blocks) back to the (..., W) of
+    ``like``; while traced, laid out as ``like`` is (see ``block_view``)."""
+    if has_torch_function((g, like)):
+        return handle_torch_function(block_unview, (g, like), g, like)
+    return g.reshape(like.shape)
+
+
 def _gates(p, xb, n_blocks):
     """xb: (...,W) -> (r, i) each (...,W) f32; block-diagonal sigmoid gates."""
-    shp = xb.shape
-    wb = shp[-1] // n_blocks
-    xg = xb.reshape(shp[:-1] + (n_blocks, wb)).float()
+    xg = block_view(xb, n_blocks).float()
     r = torch.sigmoid(torch.einsum("...nw,nwv->...nv", xg, p["gate_a"].float())
                       + p["gate_a_b"].float())
     i = torch.sigmoid(torch.einsum("...nw,nwv->...nv", xg, p["gate_i"].float())
                       + p["gate_i_b"].float())
-    return r.reshape(shp), i.reshape(shp)
+    return block_unview(r, xb), block_unview(i, xb)
 
 
 def _log_a(p, r):

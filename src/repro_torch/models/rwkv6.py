@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..kernels.ref import rwkv6_wkv_ref
 from ..kernels.rwkv6_kernel import rwkv6_wkv
@@ -133,6 +134,25 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int = 16):
     return o, state
 
 
+def fold_shards(x):
+    """(B, G, ...) as (B*G, ...): each sequence shard of each row a row.
+
+    While a cell is traced on a mesh that shards both B and G (fsdp: the
+    rows on the data axes, the shards on the model axis), the trace's forms
+    (``launch/xlaforms.py``) keep each rank's rows where they are, as XLA's
+    reshape does by permuting its device order."""
+    if has_torch_function((x,)):
+        return handle_torch_function(fold_shards, (x,), x)
+    return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def unfold_shards(x, like):
+    """(B*G, ...) back to (B, G, ...), with the B and G of ``like``."""
+    if has_torch_function((x, like)):
+        return handle_torch_function(unfold_shards, (x, like), x, like)
+    return x.reshape(tuple(like.shape[:2]) + tuple(x.shape[1:]))
+
+
 def wkv_seq_parallel(r, k, v, w_log, u, chunk: int = 16, n_shards: int = 16):
     """Sequence-parallel chunked WKV, the JAX package's ``wkv_seq_parallel``:
     each of ``n_shards`` sequence shards runs the chunked recurrence from a
@@ -147,12 +167,9 @@ def wkv_seq_parallel(r, k, v, w_log, u, chunk: int = 16, n_shards: int = 16):
         return x.reshape(B, G, Sg, H, hs)
     rs, ks, vs, ws = shards(r), shards(k), shards(v), shards(w_log.float())
     rs = maybe_constrain(rs, ("batch", "seq_q", None, "rwkv_heads", "head_dim"))
-
-    def fold(x):
-        return x.reshape(B * G, Sg, H, hs)
-    o_loc, T = wkv_chunked(fold(rs), fold(ks), fold(vs), fold(ws), u, chunk)
-    o_loc = o_loc.reshape(B, G, Sg, H, hs)
-    T = T.reshape(B, G, H, hs, hs)
+    o_loc, T = wkv_chunked(fold_shards(rs), fold_shards(ks), fold_shards(vs),
+                           fold_shards(ws), u, chunk)
+    o_loc, T = unfold_shards(o_loc, rs), unfold_shards(T, rs)
     lp = torch.cumsum(ws, dim=2)                                   # within shard
     lp_prev = lp - ws
     Dk = torch.exp(lp[:, :, -1])                                   # (B,G,H,hs)

@@ -9,10 +9,12 @@ the optimizer update.
 from __future__ import annotations
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 from ..configs.base import ModelConfig, RunPolicy
 from ..launch.sharding import manual_axes
 from ..models import api
+from ..models import moe
 from ..models.module import flatten, tree_map, unflatten
 from . import compression
 from .optimizer import OptConfig, init_opt_state, opt_update
@@ -30,13 +32,30 @@ def make_loss_fn(cfg: ModelConfig, policy: RunPolicy):
     return loss_fn
 
 
-def _split_microbatches(batch, n):
-    def r(a):
-        b = a.shape[0]
-        if b % n:
-            raise ValueError(f"batch {b} not divisible by microbatches {n}")
-        return a.reshape((n, b // n) + tuple(a.shape[1:]))
-    return tree_map(r, batch)
+def microbatches(a, n: int, moe_groups: int = 0):
+    """The ``n`` microbatches of a batch leaf: microbatch i is rows
+    i*B/n .. (i+1)*B/n, as the JAX package's reshape to (n, B/n, ...) gives
+    them to its scan.
+
+    While a cell is traced on a mesh, the trace's forms
+    (``launch/xlaforms.py``) cut them from each rank's rows instead, sharded
+    as XLA keeps a microbatch; ``moe_groups`` (the MoE layers' group count
+    of a microbatch, 0 without MoE) is what that form reads."""
+    if has_torch_function_unary(a):
+        return handle_torch_function(microbatches, (a,), a, n, moe_groups)
+    b = a.shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} not divisible by microbatches {n}")
+    return a.reshape((n, b // n) + tuple(a.shape[1:])).unbind(0)
+
+
+def _moe_groups(cfg, batch, n: int) -> int:
+    """The MoE layers' group count of one of ``n`` microbatches (0 without
+    MoE)."""
+    if not cfg.n_experts:
+        return 0
+    B, S = batch["tokens"].shape[:2]
+    return moe.groups_and_capacity(B // n * S, cfg.n_experts, cfg.top_k, 1.0)[0]
 
 
 def compute_grads(cfg, policy, params, batch):
@@ -52,10 +71,13 @@ def compute_grads(cfg, policy, params, batch):
     leaves = [p.detach().requires_grad_() for p in leaves]
     live = unflatten(zip(paths, leaves))
     n = max(policy.n_microbatch, 1)
-    mbs = _split_microbatches(batch, n) if n > 1 else tree_map(lambda a: a[None], batch)
+    if n > 1:
+        groups = _moe_groups(cfg, batch, n)
+        parts = tree_map(lambda a: microbatches(a, n, groups), batch)
     gsum = lsum = asum = None
     for i in range(n):
-        loss, aux = loss_fn(live, tree_map(lambda a: a[i], mbs))
+        mb = tree_map(lambda t: t[i], parts) if n > 1 else batch
+        loss, aux = loss_fn(live, mb)
         grads = torch.autograd.grad(loss, leaves)
         if gsum is None:
             gsum = [g.float() for g in grads]

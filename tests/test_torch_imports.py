@@ -31,7 +31,11 @@ for n in ("repro_torch.train.optimizer", "repro_torch.train.train_step",
           "repro_torch.core.batching", "repro_torch.core.engine",
           "repro_torch.core.mfs", "repro_torch.core.sa", "repro_torch.core.catalog",
           "repro_torch.examples.collie_search", "repro_torch.core.random_search",
-          "repro_torch.core.bo", "repro_torch.core.minimize"):
+          "repro_torch.core.bo", "repro_torch.core.minimize",
+          "repro_torch.launch.dryrun", "repro_torch.ckpt.checkpoint",
+          "repro_torch.runtime.elastic", "repro_torch.examples.quickstart",
+          "repro_torch.examples.serve_lm", "repro_torch.examples.train_lm",
+          "repro_torch.examples.elastic_train"):
     assert n in names, n
 import torch.distributed as dist
 assert not dist.is_initialized()     # importing starts no process group

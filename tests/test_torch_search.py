@@ -246,7 +246,10 @@ def test_microbatch_split_of_a_fully_sharded_batch_runs_replicated(n_micro):
     """A batch of 32 on the multi mesh's 32 ranks, split into microbatches:
     DTensor refuses the split into 2 (it would reshape the sharded dim) and
     plans the split into 4 over 32 ranks on a dim of 4, where the local view
-    would fail.  The hook runs either view replicated and counts it."""
+    would fail.  The hook runs either view replicated and counts it.  The
+    train step no longer views its batch so (``xlaforms._microbatches`` cuts
+    each microbatch sharded), so such a view is no longer admitted at a
+    dense dp train point."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor, Shard
@@ -262,7 +265,7 @@ def test_microbatch_split_of_a_fully_sharded_batch_runs_replicated(n_micro):
     assert tuple(b.shape) == tuple(b.to_local().shape) == (n_micro, 32 // n_micro, 256)
     assert rec.replicated == {"aten.view.default": 1}
     assert parity.unlisted_replications(rec.replicated, "qwen2-1.5b-bench", "dp", "train",
-                                        n_micro) == []
+                                        n_micro) == ["aten.view.default"]
 
 
 def test_a_view_planned_strided_runs_replicated():
@@ -270,7 +273,9 @@ def test_a_view_planned_strided_runs_replicated():
     backward of 2-row microbatches under fsdp on the multi mesh: DTensor
     plans the merged dim strided-sharded, which the registered product's
     strategies cannot take, so the hook runs the view replicated and counts
-    it."""
+    it.  With the microbatch split sharded (``xlaforms._microbatches``)
+    qwen2's train points need such a view no longer, and none is admitted
+    there."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -288,6 +293,6 @@ def test_a_view_planned_strided_runs_replicated():
     assert not any(type(pl).__name__ == "_StridedShard" for pl in b.placements)
     assert rec.replicated == {"aten.view.default": 1}
     assert parity.unlisted_replications(rec.replicated, "qwen2-1.5b-bench", "fsdp",
-                                        "train", 16) == []
+                                        "train", 16) == ["aten.view.default"]
     assert parity.unlisted_replications(rec.replicated, "qwen2-1.5b-bench", "fsdp",
                                         "train", 1) == ["aten.view.default"]

@@ -322,7 +322,7 @@ def test_train_step_options_that_need_a_mesh_raise(smoke):
         assert all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten(p),
                                                                flatten(runs[0][0])))
     with pytest.raises(ValueError, match="divisible"):
-        pts._split_microbatches({"tokens": torch.zeros(3, 4)}, 2)
+        pts.microbatches(torch.zeros(3, 4), 2)
 
 
 # ------------------------------------------------------------------------ data
@@ -345,9 +345,11 @@ def test_synthetic_lm_gives_the_reference_tokens(arch):
     assert not pf._t.is_alive()
 
 
-def test_train_cli_runs_on_the_cpu():
+def test_train_cli_runs_on_the_cpu(tmp_path):
+    # a fresh checkpoint directory: the launcher resumes from the newest step
+    # in --ckpt-dir, as the reference's does
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-                        "--device", "cpu", "--steps", "2"],
+                        "--device", "cpu", "--steps", "2", "--ckpt-dir", str(tmp_path)],
                        capture_output=True, text=True, timeout=300,
                        env={**os.environ, "PYTHONPATH": "src"},
                        cwd=pathlib.Path(__file__).resolve().parents[1])
