@@ -48,6 +48,17 @@ Phases (any failure exits non-zero and prints no result line):
               (bf16, f32) at 4 lanes of a 4096-slot cache with both archs'
               heads; a line each of ms, bound, SDPA's time, registers and
               spills, and the card's name and power limit.
+3b''. kernels_d16 — the forward (bf16, f32), dq and dk/dv at head dim 16
+              against their plain versions at the JAX package's own test
+              shape (1, 2, 2, 16, 16, 16) with window None and 24, and at
+              (4, 8, 2, 1024, 1024, 16) with a window and a causal shift;
+              the RWKV-6 WKV at hs = 16 at the package's (2, 3, 70, 16) and
+              at (1, 64, 3000, 16) (bf16, f32, decay sd 1 and 3) at the
+              kernels phase's tolerances; two runs of dq, of dk/dv and of
+              the WKV must give the same bits; a line each of ms, bound,
+              SDPA's time, registers and spills, and the card's name and
+              power limit.  No zoo arch has head dim 16 (the examples' tiny
+              models do, and run their attention plain).
 3c. bench_step — qwen2-1.5b-bench (the search's own config) and
               mixtral-8x7b-bench (8 experts top-2, window 64: the windowed
               head-dim-32 kernels) on one card: one train_s step's
@@ -70,7 +81,10 @@ Phases (any failure exits non-zero and prints no result line):
               (no launch, no pointer read; counter deltas printed);
               qwen2-1.5b at train_4k on the 16x16 production mesh (useful
               ratio within 10 % of the CPU trace's, no unlisted replicated
-              op; counters and trace seconds printed).
+              op; counters and trace seconds printed); the trace's bytes a
+              device at the three cells whose compiled HLO the tests keep
+              (``parity.FIXTURE_CELLS``), within 0.85-1.15x of today's
+              reference's.
 3d'. measure frontends — ``chip_smoke.py --measure-frontends``, a third
               process beside the measure phase and the corpus replay: bench
               points of internvl2-1b and musicgen-medium (train_s under the
@@ -2433,6 +2447,129 @@ def check_attention_d64(gen, dev, timer, context):
     return rows
 
 
+D16_SHAPES = ((1, 2, 2, 16, 16, None, 0), (1, 2, 2, 16, 16, 24, 0),
+              (4, 8, 2, 1024, 1024, 200, 0), (2, 4, 4, 500, 777, None, 277))
+D16_TIMED = (4, 8, 2, 1024)
+WKV16_SHAPES = ((2, 3, 70, 16), (1, 64, 3000, 16))
+
+
+def check_attention_d16(gen, dev, timer, context):
+    """The forward (bf16, f32), dq and dk/dv at head dim 16 against their
+    plain versions at ``D16_SHAPES`` (the JAX package's test shape, window
+    None and 24; a windowed GQA call; a causal shift); two runs of dq and of
+    dk/dv must give the same bits.  Returns report rows at ``D16_TIMED``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq,
+                                                     flash_attention_fwd)
+    D = 16
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, kvh, sq, skv, window, shift in D16_SHAPES:
+            q, k, v = attn_inputs(gen, dev, dtype, b, h, kvh, sq, skv, D)
+            do = torch.randn(b, h, sq, D, generator=gen, device=dev).to(dtype)
+            o, lse = flash_attention_fwd(q, k, v, window=window, causal_shift=shift)
+            ro, rlse = ref.flash_attention_ref(q, k, v, window=window, causal_shift=shift)
+            got = flash_attention_bwd(q, k, v, ro, rlse, do, window=window, causal_shift=shift)
+            want = ref.flash_attention_bwd_ref(q, k, v, ro, rlse, do, window=window,
+                                               causal_shift=shift)
+            torch.cuda.synchronize()
+            e_o = (o.float() - ro.float()).abs().max().item()
+            e_l = (lse - rlse).abs().max().item()
+            errs = {n: scaled_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+            ok = e_o <= TOL[dtype] and e_l <= TOL[dtype] and \
+                all(e[2] <= GRAD_TOL[dtype] for e in errs.values())
+            print(f"d16 {str(dtype)[6:]} B={b} H={h} KVH={kvh} Sq={sq} Skv={skv} D={D} "
+                  f"window={window} shift={shift}: max|o|err={e_o:.3e} max|lse|err={e_l:.3e} "
+                  + ", ".join(f"{n} err/max(1,|plain|)={e[2]:.3e}" for n, e in errs.items())
+                  + f"; tol {TOL[dtype]:g}, grads {GRAD_TOL[dtype]:g} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail("an attention kernel at head dim 16 disagrees with its plain version")
+            if dtype == torch.bfloat16:
+                worst["fwd"] = max(worst["fwd"], e_o, e_l)
+                worst["dq"] = max(worst["dq"], errs["dq"][0])
+                worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+            del q, k, v, do, o, lse, ro, rlse, got, want
+    B, H, KVH, S = D16_TIMED
+    q, k, v = attn_inputs(gen, dev, torch.bfloat16, B, H, KVH, S, S, D)
+    do = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = ref.flash_attention_ref(q, k, v)
+    dq_runs = [flash_attention_bwd_dq(q, k, v, o, lse, do) for _ in range(2)]
+    delta = dq_runs[0][1]
+    dkv_runs = [flash_attention_bwd_dkv(q, k, v, lse, delta, do) for _ in range(2)]
+    torch.cuda.synchronize()
+    bit_equal = {"dq": all(torch.equal(a, b) for a, b in zip(*dq_runs)),
+                 "dkv": all(torch.equal(a, b) for a, b in zip(*dkv_runs))}
+    print(f"d16 at B={B} H={H} KVH={KVH} S={S} D={D}: two dq runs "
+          f"{'bit-equal' if bit_equal['dq'] else 'DIFFER'}, two dk/dv runs "
+          f"{'bit-equal' if bit_equal['dkv'] else 'DIFFER'}", flush=True)
+    if not all(bit_equal.values()):
+        fail("a backward kernel at head dim 16 is not deterministic")
+    del dq_runs, dkv_runs
+    rows = attention_rows(timer, q, k, v, do, o, lse, delta, worst, bit_equal,
+                          "64-column tile, 4x the products' work, ", context)
+    regs = kernel_regs("flash_attention", "16>") + "; " + \
+        kernel_regs("flash_attention_bwd", "16>")
+    print(f"d16 registers: {regs}", flush=True)
+    return rows
+
+
+def check_wkv_hs16(gen, dev, timer, context):
+    """The WKV kernel at head size 16 against its plain version at
+    ``WKV16_SHAPES`` (bf16 and f32, decay sd 1 and 3): output and final state
+    within 1e-5 of the largest plain value; two runs give the same bits.
+    Returns its report row at the larger shape in bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_kernel import rwkv6_wkv
+    worst_abs, worst_rel = 0.0, 0.0
+    for B, H, S, hs in WKV16_SHAPES:
+        for dtype, sd in ((torch.bfloat16, 1.0), (torch.float32, 1.0), (torch.float32, 3.0)):
+            x = wkv_inputs(gen, dev, dtype, B, H, S, hs, sd)
+            o, state = rwkv6_wkv(*x)
+            ro, rstate = ref.rwkv6_wkv_ref(*x)
+            torch.cuda.synchronize()
+            errs = [((a - b).abs().max().item(), b.abs().max().item())
+                    for a, b in ((o, ro), (state, rstate))]
+            rels = [e / max(m, 1e-30) for e, m in errs]
+            ok = all(r <= WKV_REL_TOL for r in rels) and all(
+                torch.isfinite(t).all().item() for t in (o, state))
+            print(f"rwkv6_wkv hs16 {str(dtype)[6:]} B={B} H={H} S={S} hs={hs} decay sd {sd}: "
+                  f"o ({rels[0]:.2e}), state ({rels[1]:.2e}) of the largest plain value; "
+                  f"tol {WKV_REL_TOL:g} relative {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail("rwkv6_wkv at head size 16 disagrees with its plain version")
+            worst_abs = max(worst_abs, errs[0][0], errs[1][0])
+            worst_rel = max(worst_rel, *rels)
+            del x, o, state, ro, rstate
+    B, H, S, hs = WKV16_SHAPES[-1]
+    x = wkv_inputs(gen, dev, torch.bfloat16, B, H, S, hs)
+    runs = [rwkv6_wkv(*x) for _ in range(2)]
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"rwkv6_wkv at B={B} H={H} S={S} hs={hs} bf16: two runs "
+          f"{'bit-equal' if bit_equal else 'DIFFER'}", flush=True)
+    if not bit_equal:
+        fail("rwkv6_wkv at head size 16 is not deterministic")
+    del runs
+    row = {"ms": timer.ms(lambda: rwkv6_wkv(*x), iters=10),
+           "plain_ms": timer.ms(lambda: ref.rwkv6_wkv_ref(*x), iters=2),
+           "library_ms": None, "shape": f"B={B} H={H} S={S} hs={hs} bf16"}
+    n = B * H * S * hs
+    nbytes = 3 * 2 * n + 4 * n + 2 * H * hs + 4 * n + 4 * B * H * hs * hs
+    flops = 4.0 * B * H * S * hs * hs
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)
+    print(f"rwkv6_wkv at hs=16 ({row['shape']}): {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP (f32); kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); {context}", flush=True)
+    row.update(max_abs_err=worst_abs, max_rel_err=worst_rel, bit_equal_runs=bit_equal,
+               gb_per_s=nbytes / row["ms"] / 1e6)
+    print(f"rwkv6 registers: {kernel_regs('rwkv6', '16>')}", flush=True)
+    return row
+
+
 def logits_check(tag, out, exact=None):
     """Teacher-forced logits (f32) of four runs, kernels on and off in bf16
     and f32: the f32 kernels within F32_LOGIT_TOL of the largest plain f32
@@ -2795,6 +2932,23 @@ def measure_main():
                   f"(on - off) {json.dumps(delta)}", flush=True)
             row["kernels_on_delta"] = delta
         summary["points"].append(row)
+    # the trace's bytes a device at the three cells whose compiled HLO the
+    # tests keep, against today's reference's (core/parity.py)
+    fixture_space = SearchSpace(bench_archs(["qwen2-1.5b", "mixtral-8x7b"]), BENCH_SHAPES)
+    summary["fixture_bytes"] = {}
+    for name in sorted(parity.FIXTURE_BYTES):
+        cfg, shape, policy, mk = fixture_space.to_run(parity.fixture_point(fixture_space, name))
+        m = measure_cell(build_cell(cfg, shape, policy, meshes[mk]), device="cuda")
+        got, want = m.roofline["hlo_bytes_per_dev"], parity.FIXTURE_BYTES[name]
+        lo, hi = parity.FIXTURE_BYTES_BOUNDS
+        print(f"measure bytes {name} ({cfg.name} {shape.name} {policy.sharding_preset}): "
+              f"{got:.6g} a device, the reference's {want:.6g}, ratio {got / want:.4f} "
+              f"(bounds {lo}-{hi}); kinds {sorted(anomaly.kinds(m.counters(), policy.remat))}",
+              flush=True)
+        if not lo <= got / want <= hi:
+            fail(f"measure: the trace's bytes at the {name} fixture cell are {got / want:.4f}x "
+                 f"the reference's")
+        summary["fixture_bytes"][name] = got / want
     cfg, shape = get_config("qwen2-1.5b"), SHAPES["train_4k"]
     t0 = time.perf_counter()
     policy = RunPolicy()
@@ -3272,6 +3426,16 @@ def main():
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         bwd[name]["d64"] = d64[name]
     phase_seconds["kernels_d64"] = time.perf_counter() - t_phase
+
+    phase("kernels_d16")
+    t_phase = time.perf_counter()
+    context = f"timer floor {floor_ms:.4f} ms; {smi_line}"
+    d16 = check_attention_d16(gen, dev, timer, context)
+    fa["d16"] = d16["flash_attention_fwd"]
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        bwd[name]["d16"] = d16[name]
+    wkv_row["hs16"] = check_wkv_hs16(gen, dev, timer, context)
+    phase_seconds["kernels_d16"] = time.perf_counter() - t_phase
     del timer
     torch.cuda.empty_cache()
 
@@ -3484,7 +3648,7 @@ def main():
              launches=ssm["serve_launches"]["rwkv6_wkv"], tolerance=WKV_REL_TOL, **wkv_row),
     ]
     for kr in kernels:
-        rows = [kr] + [kr[d] for d in ("d256", "d32", "d64") if d in kr]
+        rows = [kr] + [kr[d] for d in ("d256", "d32", "d64", "d16", "hs16") if d in kr]
         if not all(math.isfinite(r[k]) for r in rows
                    for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite numbers for {kr['name']}")

@@ -70,9 +70,10 @@ struct FwdParams {
   Args a;
 };
 
-// D is the tile's head dim (64, 128, 256); DH the tensors' (D, or 32 in a
-// 64-column tile: TMA fills the columns past 32 with zeros, so they add
-// nothing to Q K^T and give zero columns of O, which are not stored).
+// D is the tile's head dim (64, 128, 256); DH the tensors' (D, or 16 or 32
+// in a 64-column tile: TMA fills the columns past DH with zeros, so they add
+// nothing to Q K^T and give zero columns of O, which are not stored; at
+// DH = 16 that is 4x the products' work, at DH = 32 2x).
 template <int D, int DH = D>
 __global__ void __launch_bounds__(384, 1) fwd_bf16(const __grid_constant__ FwdParams p) {
   using T = FwdTile<D>;
@@ -466,6 +467,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, floa
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH || Sq <= 0 || Skv <= 0) return 1000;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    if (D == 16) return launch_fwd_bf16<64, 16>(a, st);
     if (D == 32) return launch_fwd_bf16<64, 32>(a, st);
     if (D == 64) return launch_fwd_bf16<64>(a, st);
     if (D == 128) return launch_fwd_bf16<128>(a, st);
@@ -473,6 +475,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, floa
   } else if (dtype == 0) {
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     auto smem = [](int d) { return (size_t)(BQ * (d + 1) + d * (BK + 1) + BK * d + BQ * (BK + 1)) * 4; };
+    if (D == 16) return launch(fwd_f32<16>, grid, 256, smem(16), st, a);
     if (D == 32) return launch(fwd_f32<32>, grid, 256, smem(32), st, a);
     if (D == 64) return launch(fwd_f32<64>, grid, 256, smem(64), st, a);
     if (D == 128) return launch(fwd_f32<128>, grid, 256, smem(128), st, a);

@@ -123,8 +123,8 @@ struct DqParams {
   BwdArgs a;
 };
 
-// D is the tile's head dim (64, 128); DH the tensors' (D, or 32 in a
-// 64-column tile, whose columns past 32 TMA fills with zeros).
+// D is the tile's head dim (64, 128); DH the tensors' (D, or 16 or 32 in a
+// 64-column tile, whose columns past DH TMA fills with zeros).
 template <int D, int DH = D>
 __global__ void __launch_bounds__(384, 1) dq_bf16(const __grid_constant__ DqParams p) {
   using T = DqTile<D>;
@@ -208,8 +208,9 @@ __global__ void __launch_bounds__(384, 1) dq_bf16(const __grid_constant__ DqPara
       float acc = 0.f;
       if (row < a.Sq) {
 #pragma unroll
-        for (int m = 0; m < DH / 32; ++m) {
+        for (int m = 0; m < (DH + 31) / 32; ++m) {
           const int col = (c + 4 * m) * 8;
+          if (col >= DH) break;                        // DH = 16: two chunks a row
           const uint4 ov = *reinterpret_cast<const uint4*>(op + row * a.o_ss + col);
           const uint4 dv = *reinterpret_cast<const uint4*>(dop + row * a.do_ss + col);
           const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -406,7 +407,8 @@ struct DkvParams {
 };
 
 // D is the tile's head dim (64, 128); DH the tensors' and the partials' (D,
-// or 32 in a 64-column tile, whose columns past 32 TMA fills with zeros).
+// or 16 or 32 in a 64-column tile, whose columns past DH TMA fills with
+// zeros).
 template <int D, int DH = D>
 __global__ void __launch_bounds__(384, 1) dkv_bf16(const __grid_constant__ DkvParams p) {
   using T = DkvTile<D>;
@@ -970,12 +972,14 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v, const void
             window, causal_shift, 1.0f / sqrtf((float)D)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    if (D == 16) return launch_dq_bf16<64, 16>(a, st);
     if (D == 32) return launch_dq_bf16<64, 32>(a, st);
     if (D == 64) return launch_dq_bf16<64>(a, st);
     if (D == 128) return launch_dq_bf16<128>(a, st);
   } else if (dtype == 0) {
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     auto smem = [](int d) { return (size_t)(2 * BQ * (d + 1) + 2 * d * (BK + 1) + BQ * (BK + 1)) * 4; };
+    if (D == 16) return launch(dq_f32<16>, grid, 256, smem(16), st, a);
     if (D == 32) return launch(dq_f32<32>, grid, 256, smem(32), st, a);
     if (D == 64) return launch(dq_f32<64>, grid, 256, smem(64), st, a);
     if (D == 128) return launch(dq_f32<128>, grid, 256, smem(128), st, a);
@@ -1005,6 +1009,7 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (part == nullptr) return 1000;
+    if (D == 16) return launch_dkv_bf16<64, 16>(a, part, st);
     if (D == 32) return launch_dkv_bf16<64, 32>(a, part, st);
     if (D == 64) return launch_dkv_bf16<64>(a, part, st);
     if (D == 128) return launch_dkv_bf16<128>(a, part, st);
@@ -1013,6 +1018,7 @@ extern "C" int fa_bwd_dkv(const void* q, const void* k, const void* v, const voi
     auto smem = [](int d) {
       return (size_t)(2 * BK * (d + 1) + 2 * d * (BQ + 1) + 2 * BK * (BQ + 1) + 2 * BQ) * 4;
     };
+    if (D == 16) return launch(dkv_f32<16>, grid, 256, smem(16), st, a);
     if (D == 32) return launch(dkv_f32<32>, grid, 256, smem(32), st, a);
     if (D == 64) return launch(dkv_f32<64>, grid, 256, smem(64), st, a);
     if (D == 128) return launch(dkv_f32<128>, grid, 256, smem(128), st, a);

@@ -95,10 +95,12 @@ struct Args {
 };
 
 // 16-byte vectors of one chunk of an (S, HS) operand that each thread loads
+// (at hs = 16 in bf16 a chunk is 128 vectors: half the threads load one)
 template <typename T, int HS>
 struct Vec {
   static constexpr int PER_ROW = HS * (int)sizeof(T) / 16;
-  static constexpr int PER_THREAD = C * PER_ROW / NT;
+  static constexpr int VECS = C * PER_ROW;
+  static constexpr int PER_THREAD = (VECS + NT - 1) / NT;
   static constexpr int ELEMS = 16 / (int)sizeof(T);
 };
 
@@ -124,8 +126,8 @@ __device__ __forceinline__ void fetch_chunk(uint4 (&x)[Vec<T, HS>::PER_THREAD], 
 #pragma unroll
   for (int u = 0; u < VT::PER_THREAD; ++u) {
     const int i = tid + NT * u, t = i / VT::PER_ROW, c = (i % VT::PER_ROW) * VT::ELEMS;
-    x[u] = t < n ? *reinterpret_cast<const uint4*>(p + (c0 + t) * ss + c)
-                 : make_uint4(0u, 0u, 0u, 0u);
+    x[u] = t < n && i < VT::VECS ? *reinterpret_cast<const uint4*>(p + (c0 + t) * ss + c)
+                                 : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -137,6 +139,7 @@ __device__ __forceinline__ void put_chunk(float* D, const uint4 (&x)[Vec<T, HS>:
 #pragma unroll
   for (int u = 0; u < VT::PER_THREAD; ++u) {
     const int i = tid + NT * u, t = i / VT::PER_ROW, c = (i % VT::PER_ROW) * VT::ELEMS;
+    if (i >= VT::VECS) break;
     float y[VT::ELEMS];
     unpack(x[u], y, T());
     if constexpr (LD % 4 == 0) {             // 16-byte stores: fewer bank conflicts
@@ -154,12 +157,14 @@ __device__ __forceinline__ void put_chunk(float* D, const uint4 (&x)[Vec<T, HS>:
 struct Ident { __device__ float operator()(float x) const { return x; } };
 struct Exp { __device__ float operator()(float x) const { return expf(x); } };
 
-// N (2 or 4) neighbouring floats from or to an address aligned to 4N bytes
+// N (1, 2 or 4) neighbouring floats from or to an address aligned to 4N bytes
 template <int N>
 __device__ __forceinline__ void ld_vec(float (&x)[N], const float* p) {
   if constexpr (N == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (N == 1) {
+    x[0] = *p;
   } else {
     const float2 v = *reinterpret_cast<const float2*>(p);
     x[0] = v.x; x[1] = v.y;
@@ -168,6 +173,7 @@ __device__ __forceinline__ void ld_vec(float (&x)[N], const float* p) {
 template <int N>
 __device__ __forceinline__ void st_vec(float* p, const float (&x)[N]) {
   if constexpr (N == 4) *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else if constexpr (N == 1) *p = x[0];
   else *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
 }
 
@@ -314,7 +320,7 @@ template <typename T, int HS>
 __global__ void __launch_bounds__(NT, 2) wkv_chunk_out(Args a) {
   using L = OutSmem<HS>;
   constexpr int LD = L::LD, LT = L::LT, LV = L::LV, W = HS / 16, QC = HS / 4;
-  constexpr int SQ = HS * HS / 4 / NT;               // float4 of S_c a thread
+  constexpr int SQ4 = HS * HS / 4, SQ = (SQ4 + NT - 1) / NT;   // float4 of S_c a thread
   extern __shared__ __align__(16) float sm[];
   float* R = sm;
   float* K = R + C * LD;
@@ -350,7 +356,8 @@ __global__ void __launch_bounds__(NT, 2) wkv_chunk_out(Args a) {
   }
   float4 sr[SQ];
 #pragma unroll
-  for (int u = 0; u < SQ; ++u) sr[u] = reinterpret_cast<const float4*>(a.ds + bhc * HS * HS)[tid + NT * u];
+  for (int u = 0; u < SQ; ++u)
+    if (tid + NT * u < SQ4) sr[u] = reinterpret_cast<const float4*>(a.ds + bhc * HS * HS)[tid + NT * u];
   if (tid < HS) U[tid] = a.u[h * HS + tid];
   __syncthreads();
 
@@ -498,6 +505,7 @@ __global__ void __launch_bounds__(NT, 2) wkv_chunk_out(Args a) {
   put_chunk<T, HS, LV>(V, vr, tid, Ident());
 #pragma unroll
   for (int u = 0; u < SQ; ++u) {
+    if (tid + NT * u >= SQ4) break;
     const int idx = 4 * (tid + NT * u);
     *reinterpret_cast<float4*>(St + (idx / HS) * LV + idx % HS) = sr[u];
   }
@@ -581,9 +589,11 @@ extern "C" int rwkv6_wkv(const void* r, const void* k, const void* v, const floa
          o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    if (hs == 16) return run<__nv_bfloat16, 16>(a, st);
     if (hs == 32) return run<__nv_bfloat16, 32>(a, st);
     if (hs == 64) return run<__nv_bfloat16, 64>(a, st);
   } else if (dtype == 0) {
+    if (hs == 16) return run<float, 16>(a, st);
     if (hs == 32) return run<float, 32>(a, st);
     if (hs == 64) return run<float, 64>(a, st);
   }

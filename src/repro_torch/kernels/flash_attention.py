@@ -29,8 +29,8 @@ from .ref import (flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
 from .traceable import R, S, call, flops, mesh_divides, shardings, visible_pairs
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FWD_HEAD_DIMS = (32, 64, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 128)
+FWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 

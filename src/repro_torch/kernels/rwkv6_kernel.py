@@ -22,7 +22,7 @@ from .ref import rwkv6_wkv_ref
 from .traceable import R, S, call, flops, shardings
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZES = (32, 64)
+HEAD_SIZES = (16, 32, 64)
 CHUNK = 64          # C in the source
 
 

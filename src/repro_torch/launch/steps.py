@@ -82,10 +82,13 @@ class Trace:
     donated_bytes: int
     max_live: int
     replicated: dict          # op -> times DTensor found no placement for it
+    arg_ids: set              # the recorder's ids of the arguments' storages
+    out_ids: set              # and of the outputs'
 
     def analyze(self) -> dict:
         out = traceanalysis.analyze(self.records, self.arg_bytes, self.out_new_bytes,
-                                    self.donated_bytes, self.max_live)
+                                    self.donated_bytes, self.max_live, self.arg_ids,
+                                    self.out_ids)
         out["replicated_ops"] = dict(self.replicated)
         return out
 
@@ -136,6 +139,7 @@ class Cell:
         donated = sum(local(t).numel() * local(t).element_size()
                       for i in self.donate_argnums for t in flat[i])
         rec = traceanalysis.Recorder(fake, tfm.recomputing)
+        arg_ids = {rec.id_of(local(t)) for leaves in flat for t in leaves}
         log: list = []
         ctx = [xlaforms.XlaForms()]
         if sharded:
@@ -154,8 +158,9 @@ class Cell:
                 if isinstance(o, torch.Tensor)]
         out_new = sum(local(o).numel() * local(o).element_size() for o in outs
                       if local(o).untyped_storage()._cdata not in arg_keys)
+        out_ids = {rec.id_of(local(o)) for o in outs}
         trace = Trace(rec.records, log, arg_bytes, out_new, donated, rec.max_live,
-                      rec.replicated)
+                      rec.replicated, arg_ids, out_ids)
         del out, outs, args, flat
         return trace
 

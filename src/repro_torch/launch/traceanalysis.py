@@ -16,24 +16,34 @@ signature on global shapes.  From the records, ``analyze`` reckons:
                         what the reference counts, dots only;
 * ``remat_flops``     — the same, of products run while the checkpoint
                         recompute is active (``transformer.recomputing``);
-* ``bytes_hbm``       — an eager trace has no fusion, so summing every op's
-                        inputs and outputs would overstate memory traffic
-                        several-fold (2.8x the reference's on the parity
-                        points).  The approximation: products, kernels,
-                        reductions (softmax and norms included),
-                        gathers/scatters, copies and concatenations count
-                        their inputs and outputs once; elementwise and
-                        factory ops count only their output, written once,
-                        and read nothing (standing for XLA's fusion of a
-                        chain into its producers and consumers); views count
-                        nothing; the step's own arguments are read once and
-                        its new outputs written once;
-* ``transpose_bytes`` — bytes of copies whose output layout differs from
-                        their input's (the reference's transpose/copy bytes);
+* ``bytes_hbm``       — an eager trace has no fusion, so the records are
+                        grouped as XLA's CPU pipeline fuses the reference's
+                        program (``fusion_groups``): elementwise chains
+                        fused with their producers and consumers (a cheap
+                        producer read by several fusions duplicated into
+                        each), a reduction closing a loop fusion, products,
+                        kernels, gathers, scatters, concatenations and
+                        collectives alone.  A fusion reads each external
+                        tensor once, slice-aware, and writes what is read
+                        outside it; a standalone op reads its inputs and
+                        writes its outputs.  Widths are those of XLA's CPU
+                        module (bf16 held in f32) with the reference's TPU
+                        adjustments, and XLA's layout copies, layer-loop
+                        slices and multi-kernel ops are counted as there.
+                        This needs the dataflow: each record carries the
+                        ids of the tensors it reads and writes (a view
+                        shares its base's id, an in-place op makes a new
+                        version of its target);
+* ``transpose_bytes`` — bytes of the standalone copies whose output layout
+                        differs from their input's and of the layout
+                        copies XLA makes of a product's operands (the
+                        reference's top-level transpose/copy bytes);
 * ``collective_count``, ``collective_bytes``, ``collective_wire`` — per kind
                         (the reference's names), from the local operand
                         bytes and the group size, with the reference's
-                        ring-model ``_WIRE_FACTOR``;
+                        ring-model ``_WIRE_FACTOR`` (a one-peer
+                        ``all_to_all_single``, ``funcol.permute_tensor``'s
+                        form, is a collective-permute);
 * ``peak_bytes``      — the step's arguments plus the most bytes of local
                         storages alive at once over the trace, less the
                         donated arguments whose outputs are new storages
@@ -98,6 +108,35 @@ def _storage_key(t):
     return _local(t).untyped_storage()._cdata
 
 
+def _view_bytes(t) -> int:
+    """Bytes of the elements a view touches (a broadcast dim, stride 0,
+    touches one)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return 0 if t.numel() == 0 else n * t.element_size()
+
+
+def _written(func, args, kwargs) -> list:
+    """The tensors an op writes in place (its schema's mutable arguments)."""
+    out = []
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is not None and a.alias_info.is_write:
+            v = args[i] if i < len(args) else kwargs.get(a.name)
+            out += [t for t in tree_flatten(v)[0] if isinstance(t, torch.Tensor)]
+    return out
+
+
+def _one_peer(args) -> bool:
+    """Whether an ``all_to_all_single`` sends to one rank and receives from
+    at most one: a collective-permute."""
+    if len(args) < 3 or not isinstance(args[1], (list, tuple)) \
+            or not isinstance(args[2], (list, tuple)):
+        return False
+    return sum(1 for n in args[2] if n) == 1 and sum(1 for n in args[1] if n) <= 1
+
+
 def _group_size(kind, args) -> int:
     if kind in ("all-gather", "reduce-scatter"):
         return int(args[1] if kind == "all-gather" else args[2])
@@ -120,6 +159,8 @@ class Recorder(TorchDispatchMode):
         self._live = 0
         self.max_live = 0
         self._storages = {}          # storage key -> [bytes, tensors alive]
+        self._ids = {}               # storage key -> the id of its current version
+        self._next_id = 0
 
     # ---- live storages
     def _release(self, key):
@@ -130,6 +171,7 @@ class Recorder(TorchDispatchMode):
         if ent[1] == 0:
             self._live -= ent[0]
             del self._storages[key]
+            self._ids.pop(key, None)
 
     def _track(self, t):
         key = _storage_key(t)
@@ -160,11 +202,39 @@ class Recorder(TorchDispatchMode):
         rec = self._record(func, args, kwargs, ins, outs, out)
         in_keys = {_storage_key(t) for t in ins}
         rec["view"] = bool(outs) and all(_storage_key(o) in in_keys for o in outs)
-        self.records.append(rec)
+        rec["reads"] = [self._access(t) for t in ins]
+        written = {_storage_key(t) for t in _written(func, args, kwargs)}
+        rec["targets"] = [i for i, t in enumerate(ins) if _storage_key(t) in written]
+        for key in written:                            # a new version of its target
+            self._ids[key] = self._new_id()
         for o in outs:
             if _storage_key(o) not in in_keys:
+                self._ids[_storage_key(o)] = self._new_id()
                 self._track(o)
+        rec["writes"] = [self._access(o) for o in outs]
+        self.records.append(rec)
         return out
+
+    # ---- dataflow
+    def _new_id(self) -> int:
+        self._next_id += 1
+        return self._next_id
+
+    def id_of(self, t) -> int:
+        """The id of the current version of ``t``'s storage (a view shares
+        its base's)."""
+        key = _storage_key(t)
+        i = self._ids.get(key)
+        if i is None:
+            i = self._ids[key] = self._new_id()
+        return i
+
+    def _access(self, t):
+        """(id, bytes of the view, bytes of the storage, the view's place in
+        it) of a tensor an op reads or writes."""
+        t = _local(t)
+        return (self.id_of(t), _view_bytes(t), t.untyped_storage().nbytes(),
+                (tuple(t.shape), tuple(t.stride()), t.storage_offset()))
 
     def _record(self, func, args, kwargs, ins, outs, out):
         packet = func._overloadpacket
@@ -172,7 +242,6 @@ class Recorder(TorchDispatchMode):
         rec = {"op": name, "in": [(tuple(t.shape), str(t.dtype)[6:]) for t in ins],
                "out": [(tuple(t.shape), str(t.dtype)[6:]) for t in outs],
                "in_bytes": sum(_nbytes(t) for t in ins),
-               "out_bytes": sum(_nbytes(t) for t in outs),
                "flops": 0.0, "remat": False, "kind": "other"}
         kernel = name.startswith(_KERNELS)
         if packet in _PRODUCTS or kernel:
@@ -181,6 +250,8 @@ class Recorder(TorchDispatchMode):
                 rec["flops"] = float(fn(*args, out_val=out, **kwargs))
             rec["remat"] = bool(self.recomputing())
             rec["kind"] = "product"
+            if packet is xlaforms.dot_general_op:
+                rec["eqn"] = args[3]
         elif packet in _REDUCTIONS:
             rec["kind"] = "reduction"
         elif packet in _GATHERS:
@@ -195,6 +266,8 @@ class Recorder(TorchDispatchMode):
                     rec["transpose"] = True
         elif name.startswith(("_c10d_functional.", "_dtensor.")):
             kind = _FUNCTIONAL.get(name.split(".")[1])
+            if kind == "all-to-all" and _one_peer(args):
+                kind = "collective-permute"      # funcol.permute_tensor's all-to-all
             if kind is not None:
                 rec["kind"] = "collective"
                 rec["coll"] = kind
@@ -369,10 +442,276 @@ def dtensor_hooks(recorder: Recorder):
                 delattr(prop, n)      # the instance attribute; the class's returns
 
 
+# ops that stand alone besides products, kernels, gathers, scatters,
+# collectives and copies that change the layout: XLA's CPU pipeline fuses
+# none of them
+_ALONE = ("cat", "stack", "sort", "topk", "argsort")
+# elementwise ops XLA deems expensive: a fusion does not duplicate them
+_EXPENSIVE = {"exp", "exp2", "expm1", "log", "log1p", "log2", "pow", "div", "rsqrt",
+              "sqrt", "tanh", "sin", "cos", "tan", "sigmoid", "silu", "gelu", "erf",
+              "reciprocal", "atan2", "remainder", "fmod", "softplus", "logit",
+              "silu_backward", "gelu_backward", "sigmoid_backward", "tanh_backward"}
+# ops torch runs as one kernel that XLA runs as several: (times the input is
+# read, bytes moved through f32 temporaries in units of the output).  Softmax
+# is a max, an exp written for a sum and a divide; a layer norm and the
+# softmaxes' backwards read their inputs for a reduction and again after it.
+_PASSES = {"_softmax": (2, 3), "_log_softmax": (3, 0), "_softmax_backward_data": (2, 0),
+           "_log_softmax_backward_data": (2, 0), "native_layer_norm": (2, 0),
+           "native_layer_norm_backward": (2, 0)}
+# lookups: they read the rows they gather, not the whole table
+_LOOKUPS = ("embedding", "index", "gather", "index_select")
+_NARROW = ("bfloat16", "float16")
+
+
+def _name(r) -> str:
+    return r["op"].split(".")[1]
+
+
+def _role(r) -> str:
+    """How the fusion pass takes a record: "none" (writes nothing), "pass"
+    (a view, or a collective's wait: its output is its input), "collective",
+    "alone", "reduce" (closes a loop fusion) or "fuse" (elementwise)."""
+    if not r["writes"]:
+        return "none"
+    if r["op"].startswith("_c10d_functional.wait_tensor") or (r["view"] and not r["targets"]):
+        return "pass"
+    kind = r["kind"]
+    if kind == "collective":
+        return "collective"
+    if kind in ("product", "gather") or r.get("transpose") or _name(r) in _ALONE:
+        return "alone"
+    return "reduce" if kind == "reduction" else "fuse"
+
+
+def _f32(a, dtype):
+    """An access at the width XLA's CPU module holds it: a bf16 array in f32."""
+    return (a[0], 2 * a[1], 2 * a[2], a[3]) if dtype in _NARROW else a
+
+
+def _read_bytes(reads) -> float:
+    """Bytes a fusion reads of its external tensors, each once: the views
+    it takes of one tensor (slices of a stacked param) counted apart, never
+    more than the whole tensor."""
+    views, cap = defaultdict(dict), {}
+    for i, nb, storage, where in reads:
+        views[i][where] = nb
+        cap[i] = storage
+    return sum(min(sum(v.values()), cap[i]) for i, v in views.items())
+
+
+def _dot_layout_ok(eqn, n, where) -> bool:
+    """Whether operand ``n`` of a product (0, 1; 2: its output, laid out in
+    the equation's order) is laid out as XLA's CPU dot takes it: batch dims
+    leading, then (lhs) the free dims and the contracted ones, (rhs) the
+    contracted ones and the free ones, or, with no batch dim, either order;
+    (output) batch, lhs free, rhs free.  ``where`` is the operand's (shape,
+    strides, offset), its dims in the order of their strides."""
+    lhs, out = eqn.split("->")
+    a, b = lhs.split(",")
+    letters = (a, b, out)[n]
+    if where is None:
+        order = list(letters)
+    else:
+        shape, stride, _ = where
+        order = [letters[d] for d in sorted((d for d in range(len(shape)) if shape[d] > 1),
+                                            key=lambda d: -stride[d])]
+    batch = set(a) & set(b) & set(out)
+
+    def label(ch):
+        if ch in batch:
+            return 0
+        if n == 0:
+            return 1 if ch in out else 2
+        if n == 1:
+            return 2 if ch in out else 1
+        return 1 if ch in a else 2
+    labels = [label(ch) for ch in order]
+    return labels == sorted(labels) or (n == 1 and not batch & set(order)
+                                        and labels == sorted(labels, reverse=True))
+
+
+def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
+    """The records grouped as XLA's CPU pipeline runs the reference's
+    program: [(role, record indices, bytes read, bytes written)], one entry
+    a kernel.  ``out_ids`` and ``arg_ids`` are the recorder's ids of the
+    step's outputs and arguments.
+
+    * Elementwise ops (converts, broadcasts and copies that keep the layout
+      included) fuse with their producers and consumers; a reduction closes
+      a loop fusion with its elementwise producers; views and a
+      collective's wait are free (a view reads through to its base).
+    * Products, the CUDA kernels, gathers and scatters, concatenations,
+      sorts, copies that change the layout, and collectives stand alone,
+      so no fusion crosses one.
+    * A fusion's output is written where a standalone op, a collective or
+      the step's result reads it, or a later fusion that does not
+      duplicate it; a reduction's output always.  An elementwise producer
+      read by several fusions is duplicated into each, which reads its
+      inputs again, where it is cheap (not one of XLA's expensive ops) and
+      reads no more bytes than it writes; else it is written once and read
+      by each.  A producer fused in through a slice computes that slice.
+    * A fusion reads each external tensor once, slice-aware; a standalone
+      op reads its inputs and writes its outputs, a lookup only the rows it
+      gathers, an in-place update (a cache's ``index_put_``) only the
+      update.  Collectives move no bytes here (the reference's count).
+
+    The widths are those of XLA's CPU module, with the reference's
+    adjustments for the TPU (``hloanalysis.py``): every bf16 array is held
+    in f32, so fusions and standalone ops other than products read and
+    write bf16 tensors at twice their bytes; a product reads its operands at
+    their own width (the reference counts a dot's bf16 operands as bf16) and
+    writes f32; a bf16 -> f32 upcast of a tensor no fusion computes is free,
+    and its standalone consumers read the bf16 original.  The trace's own
+    products already take bf16, so the reference's halving of a dot's
+    upcast operands needs no counterpart.  And XLA's layouts and loops: a
+    product whose operand is not laid out as XLA's CPU dot takes it (batch
+    dims leading, contracted dims last on the left, ``_dot_layout_ok``), or
+    is a slice of an argument (a layer's weight out of the stacked params:
+    the layer loop's dynamic-slice), reads it through a copy (read and
+    written at f32) unless a fusion writes it; an update of a slice of an
+    argument (a cache's layer, carried by the layer loop) rewrites the
+    whole argument, which the loop also copies once; and the ops torch runs
+    as one kernel but XLA as several (``_PASSES``) read their inputs again.
+    """
+    canon: dict = {}
+
+    def c(i):
+        while i in canon:
+            i = canon[i]
+        return i
+    roles = [_role(r) for r in records]
+    producer, consumers = {}, defaultdict(list)
+    for k, (r, role) in enumerate(zip(records, roles)):
+        if role == "none":
+            continue
+        if role == "pass":
+            src = c(r["reads"][0][0]) if r["reads"] else None
+            for w in r["writes"]:
+                if src is not None and w[0] != src:
+                    canon[w[0]] = src
+            continue
+        for i in {c(a[0]) for a in r["reads"]}:
+            consumers[i].append(k)
+        for w in r["writes"]:
+            producer[c(w[0])] = k
+    outs, args = {c(i) for i in out_ids}, {c(i) for i in arg_ids}
+    fusible = ("fuse", "reduce")
+
+    # which fusible records write their outputs (reverse order: every
+    # consumer is decided before its producer), and for those that do not,
+    # the fusions that compute them
+    written, roots = {}, {}
+    for k in range(len(records) - 1, -1, -1):
+        if roles[k] not in fusible:
+            continue
+        ids = {c(w[0]) for w in records[k]["writes"]}
+        cons = {j for i in ids for j in consumers.get(i, ())}
+        mat = bool(ids & outs) or any(roles[j] not in fusible for j in cons) \
+            or (roles[k] == "reduce" and bool(cons))
+        groups = set()
+        for j in cons:
+            if roles[j] in fusible:
+                groups |= {j} if written[j] else roots[j]
+        if len(groups) > 1 and not mat:
+            r = records[k]
+            mat = _name(r).rstrip("_") in _EXPENSIVE or \
+                sum(a[1] for a in r["reads"]) > sum(w[1] for w in r["writes"])
+        written[k] = mat
+        roots[k] = set() if mat else groups
+
+    def computed(k):
+        return roles[k] in fusible and written[k]
+    phantoms = {k for k, r in enumerate(records)
+                if computed(k) and _name(r) == "_to_copy" and r["in"][0][1] in _NARROW
+                and r["out"][0][1] == "float32"
+                and not (producer.get(c(r["reads"][0][0])) in roots
+                         and not written[producer[c(r["reads"][0][0])]])}
+
+    out, copied = [], set()
+    carried, copied_stacks = {i: i for i in args}, set()
+    for k, (r, role) in enumerate(zip(records, roles)):
+        if role in ("none", "pass", "collective") or k in phantoms \
+                or (role in fusible and not written[k]):
+            continue
+        if role == "alone":
+            out += _copies_for_product(k, r, records, c, producer, roles, args, copied)
+            prod = r["kind"] == "product"
+            targets = set(r["targets"])
+            reads = []
+            for n, (a, d) in enumerate(zip(r["reads"], r["in"])):
+                if n in targets:
+                    continue
+                x = (c(a[0]),) + a[1:]
+                x = x if prod else _f32(x, d[1])
+                if producer.get(x[0]) in phantoms:
+                    x = (x[0], x[1] // 2, x[2], x[3])     # the bf16 original
+                reads.append(x)
+            wb = sum(_f32(w, d[1])[1] for w, d in zip(r["writes"], r["out"]))
+            if _name(r) in _LOOKUPS and reads:
+                reads[0] = (reads[0][0], min(reads[0][1], wb), reads[0][2], reads[0][3])
+            if targets:
+                wb = min(wb, _read_bytes(reads))
+                for n in targets:
+                    a = r["reads"][n]
+                    root = carried.get(c(a[0]))
+                    if root is None:
+                        continue
+                    carried.update((c(w[0]), root) for w in r["writes"])
+                    if a[1] < a[2]:
+                        wb += a[2] + (2 * a[2] if root not in copied_stacks else 0)
+                        copied_stacks.add(root)
+            out.append(("alone", [k], _read_bytes(reads), wb))
+            continue
+        # a fusion: k and the producers it computes, each through the
+        # views it reads them by
+        members, reads, stack, seen = [k], [], [(k, 1.0, ())], {(k, ())}
+        while stack:
+            m, frac, path = stack.pop()
+            for a, d in zip(records[m]["reads"], records[m]["in"]):
+                i = c(a[0])
+                p = producer.get(i)
+                if p is not None and p < k and roles[p] in fusible and not written[p]:
+                    sub = path + (a[3],) if a[1] < a[2] else path
+                    if (p, sub) not in seen:
+                        seen.add((p, sub))
+                        members.append(p)
+                        stack.append((p, frac * a[1] / max(a[2], 1), sub))
+                else:
+                    x = _f32((i,) + a[1:], d[1])
+                    reads.append((x[0], x[1] * frac, x[2], (x[3], path)))
+        rb = _read_bytes(reads)
+        wb = sum(_f32(w, d[1])[1] for w, d in zip(r["writes"], r["out"]))
+        passes, temps = _PASSES.get(_name(r), (1, 0))
+        out.append((role, sorted(set(members)), passes * rb + temps * wb, wb))
+    return out
+
+
+def _copies_for_product(k, r, records, c, producer, roles, args, copied) -> list:
+    """The copies XLA's CPU module makes of product ``k``'s operands (see
+    ``fusion_groups``): [("copy", [k], bytes read, bytes written)]."""
+    if "eqn" not in r:
+        return []
+    out = []
+    for n, (a, d) in enumerate(zip(r["reads"][:2], r["in"][:2])):
+        i = c(a[0])
+        p = producer.get(i)
+        if p is not None and roles[p] in ("fuse", "reduce"):
+            continue                     # the fusion writes the layout the product takes
+        need = not _dot_layout_ok(r["eqn"], n, a[3]) or (p is None and i in args and a[1] < a[2])
+        if p is not None and "eqn" in records[p]:
+            need |= not _dot_layout_ok(records[p]["eqn"], 2, None)
+        key = (i, a[3], r["eqn"], n)
+        if need and key not in copied:
+            copied.add(key)
+            nb = _f32(a, d[1])[1]
+            out.append(("copy", [k], nb, nb))
+    return out
+
+
 def analyze(records, arg_bytes: int = 0, out_new_bytes: int = 0,
-            donated_bytes: int = 0, max_live: int = 0) -> dict:
+            donated_bytes: int = 0, max_live: int = 0, arg_ids=(), out_ids=()) -> dict:
     """Counters of one traced step (see the module docstring)."""
-    flops = remat = bytes_hbm = transpose = 0.0
+    flops = remat = 0.0
     coll_bytes, coll_wire, coll_count = defaultdict(float), defaultdict(float), defaultdict(int)
     hist = defaultdict(int)
     for r in records:
@@ -380,25 +719,18 @@ def analyze(records, arg_bytes: int = 0, out_new_bytes: int = 0,
         flops += r["flops"]
         if r["remat"]:
             remat += r["flops"]
-        kind = r["kind"]
-        if kind == "collective":
+        if r["kind"] == "collective":
             p = max(r["group"], 2)
             coll_bytes[r["coll"]] += r["in_bytes"]
             coll_wire[r["coll"]] += r["in_bytes"] * _WIRE_FACTOR[r["coll"]](p)
             coll_count[r["coll"]] += 1
-        elif kind != "other":
-            b = r["in_bytes"] + r["out_bytes"]
-            bytes_hbm += b
-            if r.get("transpose"):
-                transpose += b
-        elif not r["view"]:
-            bytes_hbm += r["out_bytes"]      # a fusion's output, written once
-    bytes_hbm += arg_bytes + out_new_bytes
+    groups = fusion_groups(records, out_ids, arg_ids)
     return {
         "flops": flops,
         "remat_flops": remat,
-        "bytes_hbm": bytes_hbm,
-        "transpose_bytes": transpose,
+        "bytes_hbm": sum(g[2] + g[3] for g in groups),
+        "transpose_bytes": sum(g[2] + g[3] for g in groups if g[0] == "copy" or (
+            g[0] == "alone" and records[g[1][0]].get("transpose"))),
         "collective_bytes": dict(coll_bytes),
         "collective_bytes_total": sum(coll_bytes.values()),
         "collective_wire": dict(coll_wire),

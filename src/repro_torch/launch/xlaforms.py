@@ -35,6 +35,16 @@ into the forms the reference's program has:
   (XLA's gather; DTensor masks a vocab-sharded table);
 * ``pad`` of a DTensor becomes a concatenation of filled slices (DTensor's
   ``constant_pad_nd`` fails inside a redistribution in some releases);
+* ``layers.shift`` along a sequence that one mesh dim shards (rwkv6's token
+  shift, the RG-LRU's causal conv) becomes a halo exchange, as GSPMD
+  partitions the pad and slice back (``_shift``): each shard shifted, its
+  first rows the previous rank's last, by one collective-permute, where
+  DTensor's concatenation would all-gather the sequence;
+* a select of one entry of a sharded dim (the chunked WKV's loop over its
+  chunks) gathers the dim once for every select into the tensor and
+  copies the entry out, as XLA hoists the loop-invariant all-gather and
+  slices in its loop (``_hoisted_select``), and ``stack`` of DTensors
+  gathers its gradient once before splitting it (``_Stacked``);
 * GQA's grouping of H query heads as (KV, G), where the mesh splits the
   heads unevenly over the KV groups (qwen2's 12 heads over 2 KV heads on 4
   ranks), keeps each head its own group (``attention.group_heads``), and
@@ -74,6 +84,7 @@ from __future__ import annotations
 import functools
 import math
 import string
+import weakref
 from typing import Optional
 
 import torch
@@ -82,6 +93,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils.flop_counter import register_flop_formula
 
 from ..models import attention as attn
+from ..models import layers
 from ..models import moe
 from ..models import rglru
 from ..models import rwkv6 as rwkv
@@ -377,18 +389,79 @@ def _gather(x, dim, index, *, sparse_grad=False, out=None):
 
 
 def _getitem(table, idx):
-    if isinstance(idx, torch.Tensor) and table.dim() == 2 and not idx.is_floating_point() \
-            and idx.dtype != torch.bool:
+    if isinstance(idx, torch.Tensor) and table.dim() == 2 \
+            and not idx.is_floating_point() and idx.dtype != torch.bool:
         # a vocab-sharded table's masked partial rows are summed at once (the
         # mask lives only as long as the op that made it)
         return _summed(F.embedding(idx, table))
+    if _dtensor(table):
+        return _hoisted_select(table, idx)
     return NotImplemented
+
+
+def _hoisted_select(x, idx):
+    """``x[idx]`` where ``idx`` takes one entry of a dim that the mesh
+    shards (the chunked WKV's ``rc[:, ci]`` in its loop over chunks): the
+    dim is all-gathered once for every such index into this tensor, not
+    once a select, as XLA hoists a loop-invariant all-gather out of its
+    loop over the chunks, and the entry is copied out of it, as the loop's
+    dynamic-slice copies its slice."""
+    from torch.distributed.tensor import Replicate
+    items = idx if isinstance(idx, tuple) else (idx,)
+    dims = [d for d, i in enumerate(items) if isinstance(i, int)]
+    if len(dims) != 1 or any(not isinstance(i, (int, slice)) for i in items) \
+            or not _sharded_on(x, dims[0]):
+        return NotImplemented
+    key = (id(x), dims[0], x._version)
+    hit = _GATHERED.get(key)
+    if hit is None or hit[0]() is not x:
+        g = x.redistribute(x.device_mesh, [Replicate() if p.is_shard(dims[0]) else p
+                                           for p in x.placements])
+        hit = _GATHERED[key] = (weakref.ref(x, lambda _, k=key: _GATHERED.pop(k, None)), g)
+    return hit[1][idx].contiguous()
+
+
+# (id(x), the dim, x's version) -> (weakref to x, x gathered on that dim)
+_GATHERED: dict = {}
+
+
+def _stack(tensors, dim=0, *, out=None):
+    if out is not None or not tensors or not all(_dtensor(t) for t in tensors):
+        return NotImplemented
+    return _Stacked.apply(dim, *tensors)
+
+
+class _Stacked(torch.autograd.Function):
+    """``torch.stack`` of DTensors (the chunked WKV's outputs), whose
+    gradient is gathered once on the mesh dims that shard the stacked dim
+    and then split: torch's backward of ``stack`` selects each entry of the
+    gradient, which DTensor gathers once a select where the gradient
+    arrives sharded on that dim (XLA's loop reads its slices of the
+    gathered gradient, the gather hoisted out of it)."""
+
+    @staticmethod
+    def forward(ctx, dim, *tensors):
+        ctx.dim = dim
+        return torch.stack(tensors, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        d = ctx.dim % g.dim()
+        if _dtensor(g) and _sharded_on(g, d):
+            g = g.redistribute(g.device_mesh, [Replicate() if p.is_shard(d) else p
+                                               for p in g.placements])
+        return (None,) + tuple(g.unbind(d))
 
 
 def _pad(x, pad, mode="constant", value=None):
     if not _dtensor(x) or mode != "constant":
         return NotImplemented
-    value = 0.0 if value is None else value
+    return _pad_cat(x, pad, 0.0 if value is None else value)
+
+
+def _pad_cat(x, pad, value):
+    """A DTensor's constant pad as a concatenation of filled slices."""
     for i in range(len(pad) // 2):
         dim = x.dim() - 1 - i
         before, after = pad[2 * i], pad[2 * i + 1]
@@ -405,6 +478,59 @@ def _pad(x, pad, mode="constant", value=None):
         x = torch.cat(([fill(before)] if before else []) + [x] + ([fill(after)] if after else []),
                       dim)
     return x
+
+
+def _shift(x, k):
+    """``layers.shift`` of a DTensor by ``k`` steps along a sequence that one
+    mesh dim shards (rwkv6's token shift, the RG-LRU's causal conv), as
+    GSPMD partitions the pad and the slice back to the sequence's length: a
+    halo exchange.  Each rank's shard is shifted by ``k``, the ``k`` steps
+    before it taken from the previous rank by one collective-permute
+    (``_Halo``; zeros on the first rank), where DTensor's concatenation
+    would all-gather the sequence.  Elsewhere the pad's concatenation."""
+    if not _dtensor(x):
+        return NotImplemented
+    axes = [i for i, p in enumerate(x.placements) if p.is_shard(1)]
+    local = x.to_local()
+    if k <= 0 or len(axes) != 1 or local.shape[1] < k \
+            or x.shape[1] % x.device_mesh.size(axes[0]):
+        return _pad_cat(x, (0, 0, k, 0), 0.0)[:, :x.shape[1]]
+    y = _Halo.apply(local, 1, k, x.device_mesh, axes[0])
+    return _from_local(y, x.device_mesh, list(x.placements), tuple(x.shape))
+
+
+class _Halo(torch.autograd.Function):
+    """A local shard shifted by ``k`` entries along ``dim``: its first ``k``
+    the previous rank's last ``k`` along mesh dim ``axis`` (zeros on the
+    first rank), by one collective-permute; the backward sends the
+    gradient's first ``k`` back to the previous rank the same way."""
+
+    @staticmethod
+    def forward(ctx, x, dim, k, dm, axis):
+        ctx.args = (dim, k, dm, axis)
+        edge = _permuted(x.narrow(dim, x.shape[dim] - k, k), dm, axis, 1)
+        if dm.get_local_rank(axis) == 0:
+            edge = torch.zeros_like(edge)
+        return torch.cat([edge, x.narrow(dim, 0, x.shape[dim] - k)], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, k, dm, axis = ctx.args
+        n, rank = dm.size(axis), dm.get_local_rank(axis)
+        back = _permuted(g.narrow(dim, 0, k), dm, axis, -1)
+        if rank == n - 1:
+            back = torch.zeros_like(back)
+        return torch.cat([g.narrow(dim, k, g.shape[dim] - k), back], dim), \
+            None, None, None, None
+
+
+def _permuted(t, dm, axis, step):
+    """``t`` from the rank ``step`` before along mesh dim ``axis`` (cyclic)."""
+    import torch.distributed._functional_collectives as funcol
+    n = dm.size(axis)
+    flat = t.contiguous().view(-1)       # permute_tensor splits its first dim by numel
+    out = funcol.permute_tensor(flat, [(i + step) % n for i in range(n)], (dm, axis))
+    return funcol.wait_tensor(out).view(t.shape)
 
 
 def _group_heads(q, n_kv):
@@ -618,8 +744,9 @@ _REWRITES = {
     torch.log_softmax: _log_softmax, torch.Tensor.log_softmax: _log_softmax,
     torch.gather: _gather, torch.Tensor.gather: _gather,
     torch.Tensor.__getitem__: _getitem, F.pad: _pad,
+    torch.stack: _stack,
     attn.group_heads: _group_heads, train_step.microbatches: _microbatches,
-    rglru.block_view: _block_view, rglru.block_unview: _block_unview,
+    layers.shift: _shift, rglru.block_view: _block_view, rglru.block_unview: _block_unview,
     rwkv.fold_shards: _fold_shards,
     rwkv.unfold_shards: _unfold_shards, moe.group_tokens: _group_tokens,
     moe.ungroup: _ungroup,

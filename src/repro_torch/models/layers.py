@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from .module import ParamSpec
 
@@ -76,6 +77,20 @@ def proj_heads(x, w):
     """(B,S,D) x (D,h,k) -> (B,S,h,k) as one matmul."""
     D, h, k = w.shape
     return (x @ w.reshape(D, h * k)).unflatten(-1, (h, k))
+
+
+# ---------------------------------------------------------------------- shift
+
+def shift(x, k: int):
+    """x (B, S, D) shifted ``k`` steps along the sequence, axis 1: step t
+    holds step t - k, zeros before the first.
+
+    While a cell is traced on a mesh that shards the sequence, the trace's
+    forms (``launch/xlaforms.py``) shift each shard and take its first ``k``
+    steps from the previous rank, as GSPMD's halo exchange does."""
+    if has_torch_function((x,)):
+        return handle_torch_function(shift, (x,), x, k)
+    return F.pad(x, (0, 0, k, 0))[:, :x.shape[1]]
 
 
 # ----------------------------------------------------------------- embeddings

@@ -16,6 +16,7 @@ from torch.overrides import handle_torch_function, has_torch_function
 
 from ..kernels.rglru_scan import rglru_scan
 from ..launch.sharding import maybe_constrain
+from .layers import shift
 from .module import ParamSpec
 
 C_RGLRU = 8.0
@@ -73,11 +74,9 @@ def _log_a(p, r):
 
 def _conv_full(p, xb):
     """Causal depthwise conv of width CONV_K over the seq axis 1."""
-    S = xb.shape[1]
     out = p["conv_b"].to(xb.dtype) * torch.ones_like(xb)
     for j in range(CONV_K):
-        shifted = F.pad(xb, (0, 0, j, 0))[:, :S]
-        out = out + shifted * p["conv_w"][CONV_K - 1 - j].to(xb.dtype)
+        out = out + shift(xb, j) * p["conv_w"][CONV_K - 1 - j].to(xb.dtype)
     return out
 
 

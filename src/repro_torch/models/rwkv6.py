@@ -22,7 +22,7 @@ from torch.overrides import handle_torch_function, has_torch_function
 from ..kernels.ref import rwkv6_wkv_ref
 from ..kernels.rwkv6_kernel import rwkv6_wkv
 from ..launch.sharding import maybe_constrain
-from .layers import proj_heads
+from .layers import proj_heads, shift
 from .module import ParamSpec
 
 LORA_MIX = 32
@@ -59,11 +59,6 @@ def channelmix_specs(d: int, f: int):
         "wv": ParamSpec((f, d), ("mlp", "embed")),
         "wr": ParamSpec((d, d), ("embed", None)),
     }
-
-
-def _shift(x):
-    """The previous token along axis 1 (zero before the first)."""
-    return F.pad(x, (0, 0, 1, 0))[:, :x.shape[1]]
 
 
 def _ddlerp(p, x, xx):
@@ -222,7 +217,7 @@ def wkv(r, k, v, w_log, u, use_kernel):
 
 def timemix_with_state(p, x, *, n_heads, head_size, use_kernel):
     """Full-sequence time-mix. x: (B,S,D) -> (out (B,S,D), final WKV state)."""
-    r, k, v, g, w_log = _streams(p, x, _shift(x), n_heads, head_size)
+    r, k, v, g, w_log = _streams(p, x, shift(x, 1), n_heads, head_size)
     r = maybe_constrain(r, ("batch", None, "rwkv_heads", "head_dim"))
     o, final = wkv(r, k, v, w_log, p["u"], use_kernel)
     o = _group_norm(p, o.float()).to(x.dtype) * g
@@ -237,7 +232,7 @@ def apply_timemix(p, x, *, n_heads, head_size, use_kernel=False):
 
 
 def apply_channelmix(p, x):
-    xx = _shift(x)
+    xx = shift(x, 1)
     return _channelmix(p, x, xx)
 
 

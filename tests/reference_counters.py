@@ -10,6 +10,10 @@ compile on the CPU with 32 host devices) at search points, printed as JSON.
       and writes
       {pair index: counters} to PATH, which
       ``python -m repro_torch.core.parity --reference PATH ...`` reads.
+  python tests/reference_counters.py --fixture-bytes
+      prints the bytes a device (``roofline["hlo_bytes_per_dev"]``) at the
+      three cells whose compiled HLO tests/fixtures/ holds, at the points
+      of ``repro_torch.core.parity.FIXTURE_CELLS`` (``FIXTURE_BYTES``).
 
 It sets ``XLA_FLAGS`` and ``JAX_PLATFORMS`` itself when they are unset.  The
 port's tests run it in a subprocess; the port itself never imports JAX.
@@ -41,6 +45,22 @@ def measure(points, archs, restrict) -> list:
     return out
 
 
+def fixture_bytes() -> dict:
+    """{fixture name: the reference's bytes a device} at the fixture cells."""
+    from repro.core.benchscale import BENCH_SHAPES, bench_archs, bench_meshes
+    from repro.core.counters import measure_cell
+    from repro.core.searchspace import SearchSpace
+    from repro.launch.steps import build_cell
+    from repro_torch.core.parity import FIXTURE_CELLS, fixture_point
+    space = SearchSpace(bench_archs(["qwen2-1.5b", "mixtral-8x7b"]), BENCH_SHAPES)
+    out = {}
+    for name in sorted(FIXTURE_CELLS):
+        cfg, shape, policy, mk = space.to_run(fixture_point(space, name))
+        m = measure_cell(build_cell(cfg, shape, policy, bench_meshes()[mk]))
+        out[name] = m.roofline["hlo_bytes_per_dev"]
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("points", nargs="?", help="JSON file: [points, archs, restrict]")
@@ -49,10 +69,15 @@ def main(argv=None):
     ap.add_argument("--moe", action="store_true", help="--pairs: the points that need MoE")
     ap.add_argument("--shard", default="0/1", help="every n-th pairs point from the i-th")
     ap.add_argument("--out", default=None, help="where --pairs writes its JSON")
+    ap.add_argument("--fixture-bytes", action="store_true",
+                    help="the bytes a device at the fixture cells")
     a = ap.parse_args(argv)
     os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=32")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(ROOT / "src"))
+    if a.fixture_bytes:
+        print(json.dumps(fixture_bytes()))
+        return
     if not a.pairs:
         points, archs, restrict = json.loads(pathlib.Path(a.points).read_text())
         print(json.dumps(measure(points, archs, restrict)))

@@ -66,7 +66,7 @@ ATTN_SHAPES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("B,H,KVH,Sq,Skv,window,shift", ATTN_SHAPES)
 @pytest.mark.parametrize("seq_major", [False, True])
 def test_cuda_flash_attention_matches_plain(dt, D, B, H, KVH, Sq, Skv, window, shift,
@@ -220,7 +220,7 @@ BWD_SHAPES = ATTN_SHAPES + [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("B,H,KVH,Sq,Skv,window,shift", BWD_SHAPES)
 @pytest.mark.parametrize("seq_major", [False, True])
 def test_cuda_flash_attention_bwd_matches_plain(dt, D, B, H, KVH, Sq, Skv, window, shift,
@@ -326,7 +326,7 @@ def test_cuda_flash_attention_function_grads(dt):
 def test_cuda_bwd_wrappers_reject_what_the_kernels_do_not_take():
     dev = _cuda()
     lse = torch.zeros(1, 4, 16, device=dev)
-    for D in (96, 256):              # the backward kernels take D = 32, 64 and 128
+    for D in (96, 256):              # the backward kernels take D = 16, 32, 64 and 128
         q = torch.zeros(1, 4, 16, D, device=dev, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention_bwd(q, q[:, :2], q[:, :2], q, lse, q)
@@ -391,7 +391,7 @@ def test_cuda_flash_attention_bwd_is_deterministic_at_head_dim_32():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_cuda_fake_implementations_match_the_kernels_outputs(D):
     """Each kernel op's fake implementation (what the measurement traces)
     gives the shapes, strides, dtypes and devices of the kernel's own
@@ -466,7 +466,8 @@ def _wkv_inputs(dev, B, H, S, hs, dt, seq_major, decay_sd, seed=4):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("B,H,S,hs", [(2, 3, 70, 32), (1, 2, 64, 32), (1, 1, 130, 64),
+@pytest.mark.parametrize("B,H,S,hs", [(2, 3, 70, 16), (1, 8, 333, 16), (2, 64, 700, 16),
+                                      (2, 3, 70, 32), (1, 2, 64, 32), (1, 1, 130, 64),
                                       (2, 4, 1, 64), (1, 8, 333, 64), (1, 2, 63, 64),
                                       (1, 2, 65, 32), (1, 2, 4097, 64), (2, 64, 700, 64)])
 @pytest.mark.parametrize("seq_major", [False, True])
