@@ -94,6 +94,16 @@ Phases (any failure exits non-zero and prints no result line):
               aborts), each held to ``core/parity.py`` (``POINT_REFERENCE``,
               ``POINT_KIND_DIFFERENCES``, ``REFERENCE_ABORTS``) as the
               corpus points are.
+3d''. measure pairs — ``chip_smoke.py --measure-pair INDEX``, a process a
+              point, from the build to the search phase's end (collected
+              before the serving and training phases): the pairs file's points
+              ``parity.SMOKE_PAIRS`` (19: qwen2-1.5b decode_s under tp
+              against an unsharded cache; 29: rwkv6-7b train_s under dp on
+              the multi mesh in 4 microbatches) measured by the port's
+              engine at a low priority, each point's kinds today's
+              reference's or a listed difference.  The measure phase also prints the counters of
+              ``parity.COUNTER_GAPS`` (the rwkv6-7b A1 witness's roofline
+              efficiency and collective blowup) beside the reference's.
 3e. corpus — the port's replay of the 8 committed corpus entries,
               ``python -m repro_torch.core.corpus replay --parity`` on fake
               cuda tensors in a process of its own, run on the host beside
@@ -2908,6 +2918,11 @@ def measure_main():
                                                 policy.n_microbatch)
         if unlisted:
             fail(f"measure: the {role} {key} ran unlisted ops replicated: {unlisted}")
+        gap = parity.COUNTER_GAPS.get(parity.corpus_key(p, role))
+        if gap is not None:        # the rwkv6-7b A1 witness's counters beside the reference's
+            print(f"measure {cfg.name} {kind} {role}: " + ", ".join(
+                f"{k} {c[k]:.4f} (CPU trace {v[0]}, reference {v[1]})"
+                for k, v in gap[0].items()), flush=True)
         row = {"kind": kind, "role": role, "point": key, "kinds": kinds,
                "trace_s": m.compile_s, "counters": c}
         on = dataclasses.replace(policy, use_pallas=True)
@@ -3041,22 +3056,80 @@ def measure_frontends_main():
     print(json.dumps({"measure_frontends": summary}), flush=True)
 
 
-def measure_frontends_start():
-    """Start ``measure_frontends_main`` in a process of its own."""
-    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                             "--measure-frontends"], stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+def measure_pair_main(index):
+    """``chip_smoke.py --measure-pair INDEX``, in a process of its own from
+    the build to the search phase's end, at a low priority (one a point of
+    ``parity.SMOKE_PAIRS``: a decode step against an unsharded cache under
+    tp, and a microbatched rwkv6-7b train step under dp on the multi mesh):
+    the point of ``benchmarks/results/bench_fidelity_pairs.json`` measured
+    by the port's engine on fake cuda tensors (without the structural
+    dedup, so without the global trace that only fingerprints a point), its
+    kinds today's reference's (``parity.SMOKE_PAIRS``) or a listed
+    difference (``parity.PAIR_KIND_DIFFERENCES``), and no op run replicated
+    but those listed for its class.  The last line is a JSON summary."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the measure phase traces on cuda tensors")
+    os.nice(10)              # the kernel phases run beside it, on the same cores
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import anomaly, parity
+    from repro_torch.core.benchscale import BENCH_SHAPES, bench_archs, bench_meshes
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.searchspace import SearchSpace
+
+    archs, restrict, rows = parity.pair_points(
+        ROOT / "benchmarks" / "results" / "bench_fidelity_pairs.json")
+    p = next(p for i, p, _ in rows if i == index)
+    eng = Engine(SearchSpace(bench_archs(archs), BENCH_SHAPES, restrict=restrict),
+                 bench_meshes(), persistent_cache=False, struct_dedup=False, device="cuda")
+    t0 = time.perf_counter()
+    c = eng.measure(p)
+    seconds = time.perf_counter() - t0
+    eng.close()
+    if c is None:
+        fail(f"measure pairs: pair {index} failed to trace: {eng.errors}")
+    kinds = sorted(anomaly.kinds(c, p["remat"]))
+    ref = list(parity.SMOKE_PAIRS[index])
+    listed = parity.PAIR_KIND_DIFFERENCES.get(index)
+    want = ref if listed is None else list(listed[0])
+    print(f"measure pair {index} {parity.point_key(p)} x{p['n_microbatch']}: kinds {kinds} "
+          f"(reference {ref}, expected {want}), {seconds:.1f} s; counters "
+          f"{json.dumps(c)}; ops DTensor ran replicated {json.dumps(eng.replicated_ops)}",
+          flush=True)
+    if kinds != want:
+        fail(f"measure pairs: pair {index} gives kinds {kinds}, expected {want}")
+    unlisted = parity.unlisted_at(eng.replicated_at)
+    if unlisted:
+        fail(f"measure pairs: pair {index} ran unlisted ops replicated: {unlisted}")
+    print(json.dumps({"measure_pair": {"index": index, "kinds": kinds, "seconds": seconds,
+                                       "counters": c}}), flush=True)
 
 
-def measure_frontends_finish(proc):
-    out, err = proc.communicate(timeout=900)
+def subprocess_phase_start(*flags):
+    """Start this script with ``flags`` (a phase's main) in a process of
+    its own, its errors into a file (it may run long before it is read),
+    stopped when this script exits before it ends."""
+    import atexit
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             *flags],
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    proc.err_file = err
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def subprocess_phase_finish(proc, name, key):
+    """The last line's ``key`` of a process ``subprocess_phase_start``
+    started, its other lines printed; its failure fails the run."""
+    out, _ = proc.communicate(timeout=900)
     lines = out.splitlines()
     for line in lines[:-1] if proc.returncode == 0 else lines:
         print(line, flush=True)
     if proc.returncode != 0:
-        print(err[-6000:], file=sys.stderr, flush=True)
-        fail("measure frontends: the phase failed")
-    return json.loads(lines[-1])["measure_frontends"]
+        proc.err_file.seek(0)
+        print(proc.err_file.read()[-6000:], file=sys.stderr, flush=True)
+        fail(f"{name}: the phase failed")
+    return json.loads(lines[-1])[key]
 
 
 def corpus_start(tmp):
@@ -3093,6 +3166,13 @@ def corpus_finish(started):
     return {"entries": len(rep["reports"]), "seconds": seconds, "stats": rep["stats"],
             "verdicts": {r["signature"]: [r["kind_ok"], r["controls_ok"]]
                          for r in rep["reports"]}}
+
+
+def parity_smoke_pairs():
+    """The pairs points the measure pairs phase traces (``parity.SMOKE_PAIRS``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import parity
+    return parity.SMOKE_PAIRS
 
 
 def measure_phase():
@@ -3392,6 +3472,10 @@ def main():
     # to the measure phase's end (its qwen2-1.5b train cell takes minutes)
     t_dry = time.perf_counter()
     dry = dryrun_start()
+    # so do the pairs points, a process each, from here to the search
+    # phase's end (rwkv6-7b's microbatched train steps take minutes to trace)
+    pairs = [subprocess_phase_start("--measure-pair", str(i))
+             for i in sorted(parity_smoke_pairs())]
     phase("kernels")
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -3454,14 +3538,15 @@ def main():
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="corpus_replay_") as tmp:
         replay = corpus_start(tmp)
-        frontends = measure_frontends_start()
+        frontends = subprocess_phase_start("--measure-frontends")
         measured = measure_phase()
         phase_seconds["measure"] = time.perf_counter() - t_phase
         print(f"measure: {len(measured['points'])} corpus points, kernels off and on, and "
               f"the full-width point in {measured['seconds']:.1f} s (beside the corpus "
               f"replay)", flush=True)
         phase("measure frontends")
-        measured_fe = measure_frontends_finish(frontends)
+        measured_fe = subprocess_phase_finish(frontends, "measure frontends",
+                                              "measure_frontends")
         print(f"measure frontends: {len(measured_fe['points'])} points of the frontend archs "
               f"and compressed train points in {measured_fe['seconds']:.1f} s (beside the "
               f"measure phase and the corpus replay)", flush=True)
@@ -3489,6 +3574,18 @@ def main():
           f"({searched['cold']['n_compiles']} mesh traces, {searched['cold']['n_struct_hits']} "
           f"structural hits), warm {searched['warm_s']:.1f} s ({searched['warm']['n_compiles']} "
           f"mesh traces) (host)", flush=True)
+
+    # collected before the timed serving and training phases, which then
+    # run with no process of this script's beside them
+    phase("measure pairs")
+    t_phase = time.perf_counter()
+    measured_pairs = [subprocess_phase_finish(proc, "measure pairs", "measure_pair")
+                      for proc in pairs]
+    phase_seconds["measure pairs (waited)"] = time.perf_counter() - t_phase
+    print(f"measure pairs: {len(measured_pairs)} pairs points, "
+          f"{json.dumps({r['index']: round(r['seconds'], 1) for r in measured_pairs})} "
+          f"seconds each (a process each, from the build to the search phase's end)",
+          flush=True)
 
     phase("serve")
     t_phase = time.perf_counter()
@@ -3747,6 +3844,8 @@ if __name__ == "__main__":
         measure_main()
     elif sys.argv[1:] == ["--measure-frontends"]:
         measure_frontends_main()
+    elif sys.argv[1:2] == ["--measure-pair"]:
+        measure_pair_main(int(sys.argv[2]))
     elif sys.argv[1:] == ["--dryrun"]:
         dryrun_main()
     elif sys.argv[1:2] == ["--step-times"]:

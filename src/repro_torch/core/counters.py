@@ -116,9 +116,15 @@ def _specs_text(cell, constraints) -> str:
     return "\n".join(lines)
 
 
-def lower_cell(cell, chip: hw.ChipSpec = hw.V5E, device: str = "cuda") -> LoweredCell:
-    """Trace the step on global fake tensors and fingerprint its structure."""
+def lower_cell(cell, chip: hw.ChipSpec = hw.V5E, device: str = "cuda",
+               fingerprint: bool = True) -> LoweredCell:
+    """Trace the step on global fake tensors and fingerprint its structure
+    (``fingerprint=False``: neither, the floors alone, for a compile phase
+    that nothing keys by the fingerprint)."""
     from ..launch import traceanalysis
+    if not fingerprint:
+        floors, mf_useful = _floors_of(cell, chip)
+        return LoweredCell(cell, None, "", 0.0, floors, mf_useful, "", device)
     with TRACE_LOCK:
         t0 = time.time()
         lowered = cell.lower(device)

@@ -150,7 +150,9 @@ class Engine:
         struct_dedup: key the compile phase by the structural fingerprint
         of the lowered module, so aliasing points compile once (None: the
         COLLIE_STRUCT env var, default on; trajectories are byte-identical
-        either way — only n_compiles/compile_time change).
+        either way — only n_compiles/compile_time change).  Without it a
+        measurement skips the global trace, which only fingerprints the
+        point.
         device: the device type of the fake tensors every trace runs on
         (also part of the persistent cache's space fingerprint).
         """
@@ -617,7 +619,9 @@ class Engine:
             t0 = time.time()
             cell = build_cell(cfg, shape, policy, mesh,
                               OptConfig(name=policy.optimizer))
-            lc = counters_mod.lower_cell(cell, device=self.device)
+            # the global trace only fingerprints the point, for the dedup
+            lc = counters_mod.lower_cell(cell, device=self.device,
+                                         fingerprint=self.struct_dedup or force_compile)
             with self._lock:
                 self.n_lowerings += 1
                 self.lower_time += time.time() - t0
@@ -628,8 +632,9 @@ class Engine:
             return None, None
         fp = lc.fingerprint
         key = self.space.point_key(point)
-        with self._lock:
-            self._fp_of_key[key] = fp
+        if fp:
+            with self._lock:
+                self._fp_of_key[key] = fp
         if force_compile or not self.struct_dedup:
             return self._compile_lowered(lc)
         # ---- structural dedup: in-memory table, in-flight owners, disk

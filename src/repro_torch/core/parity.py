@@ -161,10 +161,15 @@ REFERENCE = {
 # rwkv6-7b A1 witness once also showed A2, blowup 9.031 against 3.927: its
 # token shift all-gathered the sequence, where GSPMD exchanges a halo
 # (xlaforms._shift), and its chunked WKV gathered each chunk's streams
-# once a chunk (xlaforms._hoisted_select, _stack); now 2.130, kinds A1.  The
+# once a chunk (xlaforms._hoisted_select, _stack); now kinds A1.  The
 # qwen2-1.5b tp decode witness once also showed A1, roofline efficiency
 # 0.2295 against 0.2740, when the trace's bytes were a per-op rule; over
-# the fusion groups (traceanalysis.fusion_groups) 0.2690, kinds A3.)
+# the fusion groups (traceanalysis.fusion_groups) 0.2690, kinds A3.  The
+# mixtral-8x7b ep control at 8 microbatches showed A1 and A2, efficiency
+# 0.2376 and blowup 4.209 against 0.2519 and 3.191, while the trace counted
+# the MoE units' weight gradients at their true group of 4, where the
+# reference's analyzer reads 2 from the list XLA writes their groups as
+# (traceanalysis.xla_collectives); now 0.2904 and 3.443, no kinds.)
 KIND_DIFFERENCES: dict = {}
 
 
@@ -180,6 +185,7 @@ PAIR_STORED_DIFFERENCES = {
     33: (("A1",), (), {"perf.roofline_efficiency": (0.033709, 0.2522)}),
     149: (("A1",), (), {"perf.roofline_efficiency": (0.11441, 0.48987)}),
     205: (("A1",), ("A1", "A2"), {"diag.collective_blowup": (3.4801, 5.1808)}),
+    49: (("A1", "A3"), ("A3",), {"perf.roofline_efficiency": (0.040895, 0.25605)}),
 }
 
 # The pairs file's index -> (port kinds, today's reference kinds, {counter:
@@ -187,90 +193,129 @@ PAIR_STORED_DIFFERENCES = {
 # tests/test_torch_search.py and test_torch_moe_measure.py hold the entries
 # of the points they measure (205 and 45) to a fresh reference run; the
 # others are held by ``python -m repro_torch.core.parity --reference``.
-_F32_WIRE = ("XLA's CPU module holds every bf16 array in f32, its collectives' operands "
-             "included, and reduces a partial sum over the joint replica group; the trace's "
-             "collectives move bf16 and DTensor reduces one mesh dim at a time")
-_SCAN = ("XLA's layer loop and the WKV's loop over 16 chunks stack their residuals for "
-         "the backward (dynamic-update-slice) and slice them back (dynamic-slice), bytes "
-         "an eager trace does without, so the port's roofline efficiency sits above "
-         "the reference's")
+_BACKWARD_READS = ("XLA's backward reads each residual from its stack through a dynamic-slice "
+                   "fused into every fusion that consumes it, more fusions than the trace's "
+                   "groups form, and the transpose of rwkv6's split of its five mixed "
+                   "streams is five (B, S, 5, D) padded gradients, each read by all of their "
+                   "consumers; the trace counts the stacks' writes but not these reads")
+_PER_CHUNK = ("the reference's loops gather the WKV's chunked streams in the forward and "
+              "again in the backward, and all-to-all the five streams' gradient, where the "
+              "trace gathers each stream once (xlaforms._hoisted_select)")
 _TWO_ROW = ("a microbatch of 1-2 rows on 32 dp ranks (MICROBATCH_COUNTERS): XLA keeps it "
             "on half a mesh axis and splits the weights' input dim over data in its loop; "
-            "the port's microbatch runs whole on every rank (no collective, 9-10x XLA's "
-            "FLOPs)")
+            "the port's microbatch runs whole on every rank (9-10x XLA's FLOPs; its only "
+            "collectives of size are the ZeRO-1 update's gathers)")
+_MOE_MICRO = ("MoE microbatches of 1-2 rows (REPLICATED_OPS: the blocked or local "
+              "attention's view of a sequence that carries the batch's ranks is not yet a "
+              "form): attention runs whole on each rank")
 PAIR_KIND_DIFFERENCES = {
-    45: (("A3",), ("A1", "A3"), {"perf.roofline_efficiency": (0.27860, 0.19831)},
-         "mixtral-8x7b-bench train_s under ep on the single mesh, 4 microbatches: a "
-         "memory-bound step: XLA's layer loop stacks its residuals for the backward and "
-         "slices them back (as _SCAN), bytes the trace does without, so the port's "
-         "roofline efficiency sits above A1's 0.25"),
-    205: (("A1",), ("A1", "A2"), {"diag.collective_blowup": (3.25, 5.1808)},
-          "qwen2-1.5b-bench train_s under fsdp, remat none: XLA moves 1.6x the trace's "
-          "wire bytes (142.7 MB in 63 collectives against 89.5 MB in 173), over A2's 4.0 "
-          "where the trace stays under it; " + _F32_WIRE),
-    10: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (2.4198, 4.3161)},
-         "qwen2-1.5b-bench train_s under ep, 32 microbatches: " + _F32_WIRE + " (1.385e8 "
-         "against 2.47e8 wire bytes)"),
-    29: (("A3",), ("A1", "A2", "A3"), {"perf.roofline_efficiency": (0.25095, 0.16442),
-                                       "diag.collective_blowup": (3.829, 4.2319)},
-         "rwkv6-7b-bench train_s under dp on the multi mesh, 4 microbatches: " + _SCAN +
-         "; and " + _F32_WIRE),
-    135: (("A3",), ("A1", "A2", "A3"), {"perf.roofline_efficiency": (0.29284, 0.15285),
-                                        "diag.collective_blowup": (3.4148, 4.2319)},
-          "as 29, remat none"),
-    126: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (3.7012, 9.5839)},
-          "rwkv6-7b-bench train_s under dp on the multi mesh, 8 microbatches: XLA "
-          "all-reduces each microbatch's f32 gradients (4.9e8 wire bytes against the "
-          "trace's 1.9e8); " + _F32_WIRE),
-    127: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (3.7012, 9.5839)},
-          "as 126, remat dots"),
-    128: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (3.7634, 7.383)},
-          "as 126"),
-    136: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (3.7634, 7.383)},
-          "as 126"),
-    65: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.0012439, 12.075)},
+    45: (("A3",), ("A1", "A3"), {"perf.roofline_efficiency": (0.26114, 0.19831)},
+         "mixtral-8x7b-bench train_s under ep on the single mesh, 4 microbatches, a "
+         "memory-bound step: the trace counts the layer loop's residual stacks now "
+         "(0.27860 before), but " + _BACKWARD_READS),
+    91: ((), ("A1",), {"perf.roofline_efficiency": (0.31011, 0.21723)},
+         "rwkv6-7b-bench train_s under ep on the multi mesh, remat none, a memory-bound "
+         "step (the trace's bytes 0.70x XLA's with the layer and chunk stacks counted): "
+         + _BACKWARD_READS),
+    144: ((), ("A1",), {"perf.roofline_efficiency": (0.31755, 0.21748)}, "as 91, under tp"),
+    145: ((), ("A1",), {"perf.roofline_efficiency": (0.31755, 0.21748)}, "as 91"),
+    50: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.085497, 0.34784)},
+         "rwkv6-7b-bench train_s under ep on the single mesh, 16 microbatches of 2 rows, "
+         "which no whole mesh axis of the batch divides (4 data ranks): XLA keeps them on "
+         "half an axis, the port's microbatch runs whole on every rank (4.1x XLA's FLOPs)"),
+    65: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.42982, 12.075)},
          "rwkv6-7b-bench train_s under dp on the multi mesh, 16 microbatches: " + _TWO_ROW),
-    137: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.0012439, 11.735)},
+    137: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.42982, 11.735)},
           "as 65"),
-    138: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.0012439, 21.546)},
+    138: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.42982, 21.546)},
           "as 65, 32 microbatches of 1 row"),
+    103: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.29934, 0.69603)},
+          "mixtral-8x7b-bench train_s under ep on the multi mesh, 16 microbatches: "
+          + _MOE_MICRO),
+    104: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.31712, 0.80035)},
+          "as 103, 32 microbatches"),
+    215: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.2204, 0.81391)},
+          "mixtral-8x7b-bench train_s under dp on the single mesh, 16 microbatches: "
+          + _MOE_MICRO),
+    216: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.2204, 0.81391)},
+          "as 215, 32 microbatches"),
+    117: ((), ("A1",), {"perf.roofline_efficiency": (0.26806, 0.24873)},
+          "mixtral-8x7b-bench train_s under ep on the multi mesh, blocked attention (its "
+          "256 keys padded to the 512-key block, as the reference pads them: the useful "
+          "ratio is the reference's, 0.65344), a memory-bound step 7 % over A1's 0.25: "
+          + _BACKWARD_READS),
+    222: (("A1", "A2"), ("A1",), {"diag.collective_blowup": (5.4796, 3.532)},
+          "mixtral-8x7b-bench train_s under tp on the single mesh, 8 microbatches, one row "
+          "a rank: XLA writes the replica groups of the activations' partial sums in its "
+          "layer loop out as a list too, which the reference's analyzer reads as a group "
+          "of 2 (hloanalysis._GROUPS_RE); the trace counts their true group of 4 (counting "
+          "them as 2 would take pair 10, whose trace lacks XLA's gathers of the 2-D "
+          "sharded activations, off the reference's kinds)"),
+    223: ((), ("A1",), {"perf.roofline_efficiency": (0.25628, 0.23857)},
+          "mixtral-8x7b-bench train_s under ep on the single mesh, 8 microbatches, a "
+          "memory-bound step 3 % under A1's 0.25 in the reference (blowup 3.902 "
+          "against 3.644): " + _BACKWARD_READS),
+    236: (("A1", "A3"), ("A1",), {"perf.useful_flops_ratio": (0.47073, 1.2301)},
+          "mixtral-8x7b-bench prefill_s under dp on the single mesh: 8 rows on the 4 data "
+          "ranks; GSPMD carries the MoE groups' sharding over data and model (32 groups "
+          "on 16 ranks) back through the (B, S) -> groups reshape into the sequence of the "
+          "dense layers, which it computes 16 ways, where the trace computes them on the "
+          "rows' 4 ways, whole on each model rank (2.6x the FLOPs)"),
 }
+
+# The pairs file's points that chip_smoke.py --measure-pair traces on the
+# card, by index -> today's reference's kinds (the fresh run of
+# tests/reference_counters.py --pairs; tests/test_torch_search.py holds
+# them to it): a decode step against an unsharded cache under tp (19) and
+# rwkv6-7b's microbatched train step under dp on the multi mesh (29: 4
+# microbatches, remat dots).  Pair 126 (8 microbatches) gave these kinds on
+# the card too, in 746-912 s of the host's time beside the script's other
+# phases: it is held on the CPU only (tests/test_torch_search.py).
+SMOKE_PAIRS = {19: ("A1",), 29: ("A1", "A2", "A3")}
 
 # corpus_key -> ({counter: (port value (CPU trace, torch 2.13), reference
 # value (CPU compile))}, cause): witnesses whose kinds agree while a deciding
 # counter stays far from the reference's.  tests/test_torch_measure.py holds
 # both values to 4 digits, so a change that moves them must update this.  The
-# rwkv6-7b A1 witness's efficiency is 0.6 % under A1's 0.25, and its blowup
-# 0.54x the reference's (2.651 on the card, torch 2.11).
+# rwkv6-7b A1 witness's efficiency is 1.32x the reference's (the scans'
+# stacks now counted; 1.68x before), and its blowup 0.54x (0.54x before: XLA's
+# f32 joint-group collectives and the ZeRO-1 gathers added what the
+# vocab-sharded embedding's gradient, now reduced in its shard, took away).
 COUNTER_GAPS = {
     ("rwkv6-7b", "train_s", "fsdp", "single", "none", True, True, "witness", 1): (
-        {"perf.roofline_efficiency": (0.2486, 0.1477), "diag.collective_blowup": (2.130, 3.927)},
-        _SCAN + "; " + _F32_WIRE),
+        {"perf.roofline_efficiency": (0.1948, 0.1477), "diag.collective_blowup": (2.139, 3.927)},
+        _BACKWARD_READS + "; " + _PER_CHUNK),
 }
 
 # qwen2-1.5b-bench train_s under dp on the multi mesh (the pairs file's point
 # 149: remat none, sgdm, seq_shard, zero1, batch 32 on 32 ranks) by
 # n_microbatch -> {counter: (port value (CPU trace, torch 2.13), today's
-# reference value)}.  At 1 the FLOPs agree.  XLA tiles the (n, 32/n) reshape
-# of the 32 ranks as n ranks on n and 32/n on the rows (the minor ones),
+# reference value)}.  At 1 the FLOPs agree, and the wire bytes count XLA's
+# f32 collectives over joint groups and the gathers of the ZeRO-1 update
+# (train_step._gathered_as).  XLA tiles the (n, 32/n) reshape of
+# the 32 ranks as n ranks on n and 32/n on the rows (the minor ones),
 # all-gathers n before its loop, and keeps each microbatch's rows on those
 # 32/n ranks, replicated on the other n (``xlaforms._microbatches``).  At 4
 # each microbatch of 8 rows is sharded over 8 ranks and replicated over 4 in
-# both (pod x data in the port); XLA moves 1.8x the port's wire bytes.  At
-# 16 a microbatch has 2 rows: XLA puts them on the low bit of the model
-# axis, half an axis, and splits the weights' input dim over data inside
-# its loop (from the ZeRO-1 state's sharding; its dots are 256 tokens by a
-# quarter of the width), 5.4x the ideal FLOPs; no mesh axis of the batch
-# rules divides 2 rows, so the port's microbatch is whole on all 32 ranks
-# (32x: its gradients are replicated, and nothing is all-reduced).  That
-# point stays listed: the port cannot shard on half a mesh axis.
+# both (pod x data in the port), and XLA moves the embedding and the logits
+# between its rows' ranks and the constraints' by collective-permutes
+# (``xlaforms._from_batch``); the table's gradient under ZeRO-1 is split
+# over the idle model axis (``xlaforms._unembed``), which moves the port's
+# FLOPs under XLA's.  At 16 a microbatch has 2 rows: XLA puts them on the
+# low bit of the model axis, half an axis, and splits the weights' input dim
+# over data inside its loop (from the ZeRO-1 state's sharding; its dots are
+# 256 tokens by a quarter of the width), 5.4x the ideal FLOPs; no mesh axis
+# of the batch rules divides 2 rows, so the port's microbatch is whole on
+# all 32 ranks (32x: its gradients are replicated, and only the ZeRO-1
+# update's gathers move bytes).  That point stays listed: the port cannot
+# shard on half a mesh axis.
 MICROBATCH_COUNTERS = {
     1: {"perf.useful_flops_ratio": (0.92759, 0.92759),
-        "diag.collective_wire_bytes": (9.3406e7, 6.5616e7)},
-    4: {"perf.useful_flops_ratio": (0.23190, 0.22459),
-        "diag.collective_wire_bytes": (1.6102e8, 2.8497e8)},
+        "diag.collective_wire_bytes": (7.192e7, 6.5616e7)},
+    4: {"perf.useful_flops_ratio": (0.25697, 0.22459),
+        "diag.collective_wire_bytes": (2.0126e8, 2.8497e8)},
     16: {"perf.useful_flops_ratio": (0.028987, 0.17287),
-         "diag.collective_wire_bytes": (63488.0, 4.1256e8)},
+         "diag.collective_wire_bytes": (1.3839e7, 4.1256e8)},
 }
 
 
@@ -335,15 +380,13 @@ def grid_key(p: dict) -> tuple:
     return point_key(p) + (p["grad_compress"],)
 
 
-_STACKS = ("memory-bound step: XLA's layer loop stacks each layer's residuals for the "
-           "backward (dynamic-update-slice) and slices them back (dynamic-slice), bytes "
-           "the unrolled trace does without, so the port's roofline efficiency, bound by "
-           "its collectives or its bytes, sits above A1's 0.25; the FLOPs are XLA's to 4 "
-           "digits")
-_DECODE_MULTI = ("memory-bound decode step on the multi mesh: XLA's layer loop carries "
-                 "and rewrites the bf16 caches at f32, and the trace's bytes over fusion "
-                 "groups fall short of its, so the port's roofline efficiency sits just "
-                 "above A1's 0.25")
+_STACKS = ("memory-bound step: the trace counts the layer loop's residual stacks, but "
+           + _BACKWARD_READS + "; the FLOPs are XLA's to 4 digits")
+_DECODE_MULTI = ("memory-bound decode step on the multi mesh: XLA's layer loop reads each "
+                 "layer's cache slice through a transposing copy at f32 (the keys for the "
+                 "scores) and rewrites the bf16 caches at f32, bytes the trace's fusion "
+                 "groups fall short of, so the port's roofline efficiency sits just above "
+                 "A1's 0.25")
 
 # grid_key -> (the reference's kinds, its perf.useful_flops_ratio): the
 # reference's measure_cell (CPU, 32 host devices) at each frontend arch's
@@ -406,12 +449,10 @@ POINT_REFERENCE = {
 # grid_key -> (port kinds, reference kinds, counter, port value (CPU trace,
 # torch 2.13), reference value (CPU compile), cause)
 POINT_KIND_DIFFERENCES = {
-    ('internvl2-1b', 'train_s', 'dp', 'single', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.2938, 0.2342, _STACKS),
-    ('internvl2-1b', 'train_s', 'fsdp', 'single', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.3051, 0.24, _STACKS),
-    ('internvl2-1b', 'train_s', 'tp', 'multi', 'none', 'none'): (('A3',), ('A1', 'A3'), "perf.roofline_efficiency", 0.2703, 0.1855, _STACKS),
-    ('internvl2-1b', 'train_s', 'ep', 'multi', 'none', 'none'): (('A3',), ('A1', 'A3'), "perf.roofline_efficiency", 0.2703, 0.1855, _STACKS),
-    ('internvl2-1b', 'decode_s', 'tp', 'multi', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.2569, 0.2285, _DECODE_MULTI),
-    ('internvl2-1b', 'decode_s', 'ep', 'multi', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.2569, 0.2285, _DECODE_MULTI),
+    ('internvl2-1b', 'train_s', 'dp', 'single', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.2854, 0.2342, _STACKS),
+    ('internvl2-1b', 'train_s', 'fsdp', 'single', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.2723, 0.24, _STACKS),
+    ('internvl2-1b', 'decode_s', 'tp', 'multi', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.266, 0.2285, _DECODE_MULTI),
+    ('internvl2-1b', 'decode_s', 'ep', 'multi', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.266, 0.2285, _DECODE_MULTI),
 }
 
 # The compressed train points where the reference's XLA aborts the process (a

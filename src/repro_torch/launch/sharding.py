@@ -83,6 +83,12 @@ PRESETS: dict[str, dict] = {
 }
 
 
+# the rules' entry naming the mesh axis that ZeRO-1 shards the optimizer
+# state over (set in a train step's rules where the policy has ZeRO-1):
+# the measurement's forms make gradients in that layout, as GSPMD does
+ZERO1 = "zero1"
+
+
 def make_rules(preset: str = "fsdp", **overrides) -> dict:
     """Build a rule set from a preset with per-axis overrides.
 

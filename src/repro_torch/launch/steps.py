@@ -21,13 +21,15 @@ import torch
 
 from ..configs.base import ModelConfig, RunPolicy, ShapeSpec
 from ..models import api
+from ..models import layers
 from ..models import transformer as tfm
 from ..models.module import tree_map
 from ..train.optimizer import OptConfig, opt_state_axes
 from ..train.train_step import (make_decode_step, make_init_opt, make_prefill_step,
                                 make_train_step)
 from . import traceanalysis, xlaforms
-from .sharding import FallbackStats, placements_for, spec_for, tree_specs, use_rules
+from .sharding import (ZERO1, FallbackStats, placements_for, spec_for, tree_specs,
+                       use_rules)
 
 
 def _zero1_specs(mesh, shapes, axes_tree, rules, stats=None):
@@ -84,11 +86,12 @@ class Trace:
     replicated: dict          # op -> times DTensor found no placement for it
     arg_ids: set              # the recorder's ids of the arguments' storages
     out_ids: set              # and of the outputs'
+    moe_ranks: int = 0        # the mesh's ranks, for a model with MoE layers
 
     def analyze(self) -> dict:
         out = traceanalysis.analyze(self.records, self.arg_bytes, self.out_new_bytes,
                                     self.donated_bytes, self.max_live, self.arg_ids,
-                                    self.out_ids)
+                                    self.out_ids, self.moe_ranks)
         out["replicated_ops"] = dict(self.replicated)
         return out
 
@@ -138,7 +141,7 @@ class Cell:
                         for leaves in flat for t in leaves)
         donated = sum(local(t).numel() * local(t).element_size()
                       for i in self.donate_argnums for t in flat[i])
-        rec = traceanalysis.Recorder(fake, tfm.recomputing)
+        rec = traceanalysis.Recorder(fake, tfm.recomputing, layers.scan_scope)
         arg_ids = {rec.id_of(local(t)) for leaves in flat for t in leaves}
         log: list = []
         ctx = [xlaforms.XlaForms()]
@@ -160,7 +163,8 @@ class Cell:
                       if local(o).untyped_storage()._cdata not in arg_keys)
         out_ids = {rec.id_of(local(o)) for o in outs}
         trace = Trace(rec.records, log, arg_bytes, out_new, donated, rec.max_live,
-                      rec.replicated, arg_ids, out_ids)
+                      rec.replicated, arg_ids, out_ids,
+                      self.mesh.size if self.cfg.n_experts and sharded else 0)
         del out, outs, args, flat
         return trace
 
@@ -197,6 +201,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, policy: RunPolicy,
     bspec = tree_specs(mesh, bshapes, baxes, rules, stats)
 
     if shape.kind == "train":
+        if policy.zero1 and "data" in mesh.shape:
+            rules[ZERO1] = (("data",),)
         init_opt = make_init_opt(cfg, policy, opt, mesh)
         oshapes = _shape_tree(init_opt(api.abstract_params(cfg, pdtype)))
         oaxes = {"mom": opt_state_axes(opt, paxes)["mom"], "step": ()}

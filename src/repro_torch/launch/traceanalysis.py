@@ -29,11 +29,16 @@ signature on global shapes.  From the records, ``analyze`` reckons:
                         writes its outputs.  Widths are those of XLA's CPU
                         module (bf16 held in f32) with the reference's TPU
                         adjustments, and XLA's layout copies, layer-loop
-                        slices and multi-kernel ops are counted as there.
+                        slices and multi-kernel ops are counted as there,
+                        and the stacks in which XLA's scanned loops (the
+                        layer units, the WKV's chunks) keep their steps'
+                        residuals for the backward (``_scan_residuals``).
                         This needs the dataflow: each record carries the
                         ids of the tensors it reads and writes (a view
                         shares its base's id, an in-place op makes a new
-                        version of its target);
+                        version of its target), a stable id of each
+                        storage (alive while any alias is), its phase
+                        (forward, recompute, gradients) and its loop step;
 * ``transpose_bytes`` — bytes of the standalone copies whose output layout
                         differs from their input's and of the layout
                         copies XLA makes of a product's operands (the
@@ -43,7 +48,12 @@ signature on global shapes.  From the records, ``analyze`` reckons:
                         bytes and the group size, with the reference's
                         ring-model ``_WIRE_FACTOR`` (a one-peer
                         ``all_to_all_single``, ``funcol.permute_tensor``'s
-                        form, is a collective-permute);
+                        form, is a collective-permute), as XLA's CPU
+                        module runs them (``xla_collectives``): bf16 at
+                        f32 width, a partial sum over several mesh dims
+                        one all-reduce over the joint group, and the
+                        group the reference's analyzer reads where XLA
+                        writes the replica groups out as a list;
 * ``peak_bytes``      — the step's arguments plus the most bytes of local
                         storages alive at once over the trace, less the
                         donated arguments whose outputs are new storages
@@ -53,6 +63,7 @@ signature on global shapes.  From the records, ``analyze`` reckons:
 from __future__ import annotations
 
 import contextlib
+import math
 import weakref
 from collections import defaultdict
 
@@ -147,12 +158,16 @@ def _group_size(kind, args) -> int:
 class Recorder(TorchDispatchMode):
     """Records every op run on tensors of ``fake_mode`` (local shards or
     global fake tensors) while active.  ``recomputing`` is a callable that
-    says whether the checkpoint recompute is running."""
+    says whether the checkpoint recompute is running, ``scope`` one that
+    gives the scanned loop steps running now (``layers.scan_scope``).  Each
+    record carries its phase: "F" (the forward), "R" (the checkpoint's
+    recompute in the backward) or "G" (the rest of the backward)."""
 
-    def __init__(self, fake_mode, recomputing=lambda: False):
+    def __init__(self, fake_mode, recomputing=lambda: False, scope=lambda: ()):
         super().__init__()
         self.fake_mode = fake_mode
         self.recomputing = recomputing
+        self.scope = scope
         self.records = []
         self.muted = 0               # > 0 inside DTensor's shape inference
         self.replicated = {}         # op -> times DTensor found no placement
@@ -160,6 +175,7 @@ class Recorder(TorchDispatchMode):
         self.max_live = 0
         self._storages = {}          # storage key -> [bytes, tensors alive]
         self._ids = {}               # storage key -> the id of its current version
+        self._sids, self._aliases = {}, {}   # and its stable id (``_sid``)
         self._next_id = 0
 
     # ---- live storages
@@ -211,11 +227,40 @@ class Recorder(TorchDispatchMode):
             if _storage_key(o) not in in_keys:
                 self._ids[_storage_key(o)] = self._new_id()
                 self._track(o)
+        rec["sreads"] = [self._sid(t) for t in ins]
+        for key in written | {_storage_key(o) for o in outs if _storage_key(o) not in in_keys}:
+            self._sids[key] = self._new_id()
+        for o in outs:
+            self._hold(o)
         rec["writes"] = [self._access(o) for o in outs]
+        rec["swrites"] = [self._sid(o) for o in outs]
         self.records.append(rec)
         return out
 
     # ---- dataflow
+    def _sid(self, t) -> int:
+        """The stable id of ``t``'s storage's current version: kept while any
+        alias of the storage lives (an id may be dropped when the tensor
+        that made the storage dies and only an alias, such as the one a
+        checkpoint saves, holds it)."""
+        key = _storage_key(t)
+        i = self._sids.get(key)
+        if i is None:
+            i = self._sids[key] = self._new_id()
+        return i
+
+    def _hold(self, t):
+        key = _storage_key(t)
+        self._aliases[key] = self._aliases.get(key, 0) + 1
+        weakref.finalize(t, self._unhold, key)
+
+    def _unhold(self, key):
+        n = self._aliases.pop(key) - 1
+        if n:
+            self._aliases[key] = n
+        else:
+            self._sids.pop(key, None)
+
     def _new_id(self) -> int:
         self._next_id += 1
         return self._next_id
@@ -242,7 +287,9 @@ class Recorder(TorchDispatchMode):
         rec = {"op": name, "in": [(tuple(t.shape), str(t.dtype)[6:]) for t in ins],
                "out": [(tuple(t.shape), str(t.dtype)[6:]) for t in outs],
                "in_bytes": sum(_nbytes(t) for t in ins),
-               "flops": 0.0, "remat": False, "kind": "other"}
+               "flops": 0.0, "remat": False, "kind": "other", "scope": self.scope(),
+               "phase": "F" if torch._C._current_graph_task_id() == -1
+               else "R" if self.recomputing() else "G"}
         kernel = name.startswith(_KERNELS)
         if packet in _PRODUCTS or kernel:
             fn = flop_registry.get(packet)
@@ -530,6 +577,16 @@ def _dot_layout_ok(eqn, n, where) -> bool:
                                         and labels == sorted(labels, reverse=True))
 
 
+def _gathered(r, c, producer, roles) -> bool:
+    """Whether a concatenation joins the chunks of one collective's output:
+    DTensor's all-gather along a dim other than the first gathers along the
+    first and concatenates the chunks, where XLA's all-gather writes the
+    gathered dim in place."""
+    ids = {c(a[0]) for a in r["reads"]}
+    p = producer.get(ids.pop()) if len(ids) == 1 else None
+    return p is not None and roles[p] == "collective"
+
+
 def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
     """The records grouped as XLA's CPU pipeline runs the reference's
     program: [(role, record indices, bytes read, bytes written)], one entry
@@ -542,7 +599,13 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
       collective's wait are free (a view reads through to its base).
     * Products, the CUDA kernels, gathers and scatters, concatenations,
       sorts, copies that change the layout, and collectives stand alone,
-      so no fusion crosses one.
+      so no fusion crosses one.  A concatenation of the chunks of one
+      collective's output is the collective's (``_gathered``).
+    * A residual of a scanned loop's step (``_scan_residuals``) is written
+      by its step and read by the backward from the loop's stack, whose
+      dynamic-update-slice is a "stack" group (the residual read and
+      written) at each loop level; the stack's dynamic-slice writes the
+      layout a product of the backward takes.
     * A fusion's output is written where a standalone op, a collective or
       the step's result reads it, or a later fusion that does not
       duplicate it; a reduction's output always.  An elementwise producer
@@ -584,6 +647,8 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
     for k, (r, role) in enumerate(zip(records, roles)):
         if role == "none":
             continue
+        if role == "alone" and _name(r) == "cat" and _gathered(r, c, producer, roles):
+            role = roles[k] = "pass"
         if role == "pass":
             src = c(r["reads"][0][0]) if r["reads"] else None
             for w in r["writes"]:
@@ -596,6 +661,7 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
             producer[c(w[0])] = k
     outs, args = {c(i) for i in out_ids}, {c(i) for i in arg_ids}
     fusible = ("fuse", "reduce")
+    stacked = _scan_residuals(records, roles, c, args)
 
     # which fusible records write their outputs (reverse order: every
     # consumer is decided before its producer), and for those that do not,
@@ -606,7 +672,7 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
             continue
         ids = {c(w[0]) for w in records[k]["writes"]}
         cons = {j for i in ids for j in consumers.get(i, ())}
-        mat = bool(ids & outs) or any(roles[j] not in fusible for j in cons) \
+        mat = bool(ids & (outs | stacked.keys())) or any(roles[j] not in fusible for j in cons) \
             or (roles[k] == "reduce" and bool(cons))
         groups = set()
         for j in cons:
@@ -634,7 +700,8 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
                 or (role in fusible and not written[k]):
             continue
         if role == "alone":
-            out += _copies_for_product(k, r, records, c, producer, roles, args, copied)
+            out += _copies_for_product(k, r, records, c, producer, roles, args, copied,
+                                       {v[3] for v in stacked.values()})
             prod = r["kind"] == "product"
             targets = set(r["targets"])
             reads = []
@@ -683,19 +750,78 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
         wb = sum(_f32(w, d[1])[1] for w, d in zip(r["writes"], r["out"]))
         passes, temps = _PASSES.get(_name(r), (1, 0))
         out.append((role, sorted(set(members)), passes * rb + temps * wb, wb))
+    for i, (k, nb, levels, _) in stacked.items():
+        out += [("stack", [k], nb, nb)] * levels
     return out
 
 
-def _copies_for_product(k, r, records, c, producer, roles, args, copied) -> list:
+# the phases whose reads make a loop step's tensor a residual, by the phase
+# the step runs in: the forward's are read by the whole backward, the
+# recompute's by the gradients
+_LATER = {"F": ("R", "G"), "R": ("G",)}
+
+
+def _scan_residuals(records, roles, c, args) -> dict:
+    """The residuals of XLA's scanned loops: {id: (the record that makes it,
+    its bytes at the CPU module's width, the loops that stack it, its stable
+    id)}.
+
+    The JAX package runs the layer units and the WKV's chunks as
+    ``lax.scan``; a scan's forward writes each step's residuals, what
+    autograd saves for the backward under the remat policy (the outputs of
+    the kept products and the step's carry under "dots", only the carry
+    under "full"), into a stack by a dynamic-update-slice, which reads the
+    slice and writes it in place (``hloanalysis._fusion_io_bytes``).  Here
+    a residual of a step of a scanned loop (``layers.scan_steps``) is a
+    tensor that the backward reads (for a step of the recompute, the
+    gradients), through any alias (the records' stable ids), and that the
+    step makes, or that the step alone of its loop reads, made before the
+    loop (the carry into the first step; what every step reads, as the
+    weights, is the loop's invariant); never an argument.  A step nested in
+    another (the chunks in a unit) is stacked at each level.  The loop's
+    body ends at the stack, so a residual is written by its step and read
+    from memory by the backward, as a slice of the stack."""
+    readers, steps, made = defaultdict(set), defaultdict(set), {}
+    for j, r in enumerate(records):
+        if roles[j] in ("none", "pass"):
+            continue
+        for i in r["sreads"]:
+            readers[i].add(r["phase"])
+            steps[i].update((x, r["phase"]) for x in r["scope"])
+        for w, d, si in zip(r["writes"], r["out"], r["swrites"]):
+            made.setdefault(si, (j, w, d))
+    out: dict = {}
+    for si, (k, w, d) in made.items():
+        i, r = c(w[0]), records[k]
+        if i in args:
+            continue
+        levels = {x[:2]: r["phase"] for x in r["scope"]}
+        runs = defaultdict(list)
+        for (loop, run, step), phase in steps.get(si, ()):
+            runs[(loop, run)].append(phase)
+        for run, phases in runs.items():
+            if run not in levels and len({x for x, _ in steps[si] if x[:2] == run}) == 1:
+                levels[run] = phases[0]
+        n = sum(1 for phase in levels.values()
+                if any(p in readers[si] for p in _LATER.get(phase, ())))
+        if n:
+            out[i] = (k, _f32(w, d[1])[1], n, si)
+    return out
+
+
+def _copies_for_product(k, r, records, c, producer, roles, args, copied, residuals) -> list:
     """The copies XLA's CPU module makes of product ``k``'s operands (see
-    ``fusion_groups``): [("copy", [k], bytes read, bytes written)]."""
+    ``fusion_groups``): [("copy", [k], bytes read, bytes written)].  The
+    backward reads a residual through the dynamic-slice of its stack, which
+    writes the layout the product takes."""
     if "eqn" not in r:
         return []
     out = []
-    for n, (a, d) in enumerate(zip(r["reads"][:2], r["in"][:2])):
+    for n, (a, d, si) in enumerate(zip(r["reads"][:2], r["in"][:2], r["sreads"])):
         i = c(a[0])
         p = producer.get(i)
-        if p is not None and roles[p] in ("fuse", "reduce"):
+        if p is not None and roles[p] in ("fuse", "reduce") \
+                or (si in residuals and r["phase"] != "F"):
             continue                     # the fusion writes the layout the product takes
         need = not _dot_layout_ok(r["eqn"], n, a[3]) or (p is None and i in args and a[1] < a[2])
         if p is not None and "eqn" in records[p]:
@@ -708,9 +834,75 @@ def _copies_for_product(k, r, records, c, producer, roles, args, copied) -> list
     return out
 
 
+def xla_collectives(records, moe_ranks: int = 0) -> list:
+    """The trace's collectives as XLA's CPU module runs them: [(kind, operand
+    bytes, group size as the reference's analyzer reads it)].
+
+    * XLA's CPU backend holds every bf16 array in f32, a collective's
+      operands included: a bf16 operand is counted at f32 width.
+    * GSPMD all-reduces a partial sum over several mesh axes once, over the
+      joint replica group; DTensor reduces it one mesh dim at a time, each
+      all-reduce taking the previous one's result.  Such a chain is counted
+      as one all-reduce whose group is the product of the chain's groups.
+    * The reference's analyzer reads a group's size from XLA's iota form of
+      the replica groups ``[n,p]<=[...]`` and takes 2 where XLA writes them
+      out as a list (``hloanalysis._GROUPS_RE``).  In a model with MoE
+      layers on ``moe_ranks`` ranks, XLA writes as a list the groups of the
+      all-reduce into which its combiner merges a layer unit's bf16 weight
+      gradients (each a product that sums over the rows) where they are
+      reduced over part of the mesh, the weights sharded over the rest (the
+      HLO of the mixtral train steps under tp and ep; under dp, reduced
+      over every rank, and in the dense archs, whose combined gradients
+      lead with a bias's or a norm's, in the iota form).  Such an all-reduce
+      is given the group 2.
+    """
+    out, src, chained, made = [], {}, {}, {}
+    for r in records:
+        for si in r["swrites"]:
+            made.setdefault(si, r)
+        if r["op"].startswith("_c10d_functional.wait_tensor") and r["reads"] and r["writes"]:
+            src[r["writes"][0][0]] = src.get(r["reads"][0][0], r["reads"][0][0])
+            continue
+        if r["kind"] != "collective":
+            continue
+        nb = sum(_nbytes_of(shape, dtype) * (2 if dtype in _NARROW else 1)
+                 for shape, dtype in r["in"])
+        i = src.get(r["reads"][0][0], r["reads"][0][0]) if r["reads"] else None
+        j = chained.get(i) if r["coll"] == "all-reduce" else None
+        if j is not None:
+            kind, nb0, group, grad = out[j]
+            out[j] = (kind, nb0, group * r["group"], grad)
+        else:
+            j = len(out)
+            p = made.get(r["sreads"][0]) if moe_ranks and r["coll"] == "all-reduce" else None
+            grad = p is not None and _weight_gradient(p) and p["out"][0][1] in _NARROW
+            out.append((r["coll"], nb, r["group"], grad))
+        if r["coll"] == "all-reduce":
+            for w in r["writes"]:
+                chained[w[0]] = j
+    return [(kind, nb, 2 if grad and group < moe_ranks else group)
+            for kind, nb, group, grad in out]
+
+
+def _weight_gradient(r) -> bool:
+    """Whether record ``r`` is a product that sums over its first operand's
+    leading dim (the rows), as a weight's gradient does; an activation's
+    product keeps it."""
+    if "eqn" not in r:
+        return False
+    ins, res = r["eqn"].split("->")
+    return ins[:1] not in res
+
+
+def _nbytes_of(shape, dtype: str) -> int:
+    return math.prod(shape) * getattr(torch, dtype).itemsize
+
+
 def analyze(records, arg_bytes: int = 0, out_new_bytes: int = 0,
-            donated_bytes: int = 0, max_live: int = 0, arg_ids=(), out_ids=()) -> dict:
-    """Counters of one traced step (see the module docstring)."""
+            donated_bytes: int = 0, max_live: int = 0, arg_ids=(), out_ids=(),
+            moe_ranks: int = 0) -> dict:
+    """Counters of one traced step (see the module docstring); ``moe_ranks``:
+    the mesh's ranks where the model has MoE layers, else 0."""
     flops = remat = 0.0
     coll_bytes, coll_wire, coll_count = defaultdict(float), defaultdict(float), defaultdict(int)
     hist = defaultdict(int)
@@ -719,11 +911,10 @@ def analyze(records, arg_bytes: int = 0, out_new_bytes: int = 0,
         flops += r["flops"]
         if r["remat"]:
             remat += r["flops"]
-        if r["kind"] == "collective":
-            p = max(r["group"], 2)
-            coll_bytes[r["coll"]] += r["in_bytes"]
-            coll_wire[r["coll"]] += r["in_bytes"] * _WIRE_FACTOR[r["coll"]](p)
-            coll_count[r["coll"]] += 1
+    for kind, nb, group in xla_collectives(records, moe_ranks):
+        coll_bytes[kind] += nb
+        coll_wire[kind] += nb * _WIRE_FACTOR[kind](max(group, 2))
+        coll_count[kind] += 1
     groups = fusion_groups(records, out_ids, arg_ids)
     return {
         "flops": flops,

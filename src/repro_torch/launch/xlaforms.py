@@ -50,13 +50,22 @@ into the forms the reference's program has:
   ranks), keeps each head its own group (``attention.group_heads``), and
   the K/V heads are repeated to the query heads (``attention.kv_for``):
   attention stays sharded on the heads, as XLA tiles (KV, G) jointly.  A
-  single decode token is gathered instead, and attends sharded on the
-  cache's sequence;
+  single decode token is gathered instead where the cache's sequence is
+  sharded on the heads' mesh axes, and attends sharded on it; against a
+  replicated cache it keeps its heads sharded and each rank reads its own
+  heads' KV heads (``_kv_for``);
 * the train step's split of a batch into microbatches
   (``train_step.microbatches``) keeps each microbatch sharded as XLA's
   loop does, from one redistribution of the batch (``_microbatches``),
   where DTensor's view of a batch sharded over more ranks than a
-  microbatch has rows would run replicated;
+  microbatch has rows would run replicated; where XLA's loop holds a
+  microbatch on other ranks than the constraints put its rows on, the
+  tokens' embedding and the logits (``transformer.from_batch``) move
+  between the two by a collective-permute each way (``_from_batch``);
+* the logits' product of a train step under ZeRO-1 with the table whole
+  (``transformer.unembed``) makes the table's gradient as GSPMD makes it
+  in the optimizer state's layout: split over an idle mesh axis, reduced,
+  and moved onto the ZeRO-1 axis (``_unembed``);
 * the RG-LRU gates' view of a width sharded over more ranks than divide
   its blocks gathers the width first and slices the gates' outputs back
   (``_block_view``, ``_block_unview``), so that only the gates, not the
@@ -391,12 +400,46 @@ def _gather(x, dim, index, *, sparse_grad=False, out=None):
 def _getitem(table, idx):
     if isinstance(idx, torch.Tensor) and table.dim() == 2 \
             and not idx.is_floating_point() and idx.dtype != torch.bool:
+        if _dtensor(table) and _dtensor(idx) and _sharded_on(table, 0) \
+                and torch.is_grad_enabled() and table.requires_grad:
+            return _Lookup.apply(table, idx)
         # a vocab-sharded table's masked partial rows are summed at once (the
         # mask lives only as long as the op that made it)
         return _summed(F.embedding(idx, table))
     if _dtensor(table):
         return _hoisted_select(table, idx)
     return NotImplemented
+
+
+class _Lookup(torch.autograd.Function):
+    """The rows of a table sharded on its rows (a vocab-sharded
+    embedding), as GSPMD partitions the gather and its transpose: each rank
+    looks up the rows its shard holds and the masked lookups are summed at
+    once; the backward scatters the gradient into the rank's own rows only,
+    a sum partial over the mesh dims that shard the indices, where
+    DTensor's rule makes the whole table's gradient on every rank and
+    reduces it whole."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table = (table.device_mesh, tuple(table.placements), tuple(table.shape),
+                     table.to_local().shape[0])
+        return _summed(F.embedding(idx, table))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        (idx,) = ctx.saved_tensors
+        dm, placements, shape, rows = ctx.table
+        want = [Replicate() if p.is_shard(0) else q for p, q in zip(placements, idx.placements)]
+        idx = idx.redistribute(dm, want)
+        g = g.redistribute(dm, want)
+        local = torch.ops.aten.embedding_dense_backward(g.to_local(), idx.to_local(),
+                                                        rows, -1, False)
+        out = [Shard(0) if p.is_shard(0) else Partial() if q.is_shard() else Replicate()
+               for p, q in zip(placements, want)]
+        return _from_local(local, dm, out, shape), None
 
 
 def _hoisted_select(x, idx):
@@ -537,24 +580,124 @@ def _group_heads(q, n_kv):
     """The query heads of a DTensor q (B,S,H,dh) whose mesh splits H over
     more ranks than there are KV heads, unevenly for a (KV, G) view: as
     (B,S,H,1,dh), each head its own group, sharded as q is (XLA tiles (KV, G)
-    jointly, H/n heads a rank; DTensor cannot place that view); a single
-    decode token is gathered and grouped as (KV, G)."""
+    jointly, H/n heads a rank; DTensor cannot place that view).  A single
+    decode token against a cache whose sequence the heads' mesh axes shard
+    is gathered and grouped as (KV, G), so that its attention runs sharded
+    on the cache; against a replicated cache it keeps its heads sharded,
+    and each rank reads the KV heads of its own query heads
+    (``attention.kv_for``), as XLA does."""
     if not _dtensor(q):
         return NotImplemented
-    n = 1
-    for size, p in zip(q.device_mesh.shape, q.placements):
-        if p.is_shard(2):
-            n *= size
+    axes = [i for i, p in enumerate(q.placements) if p.is_shard(2)]
+    n = math.prod(q.device_mesh.size(i) for i in axes)
     if n == 1 or n_kv % n == 0:
         return NotImplemented
-    if q.shape[1] == 1:
-        # one decode token: gathered whole (a few KB) and grouped as (KV, G),
-        # so its attention runs sharded on the cache's sequence
+    if q.shape[1] == 1 and _cache_seq_sharded_on(
+            [q.device_mesh.mesh_dim_names[i] for i in axes]):
+        # one decode token: gathered whole (a few KB) and grouped as (KV, G)
         from torch.distributed.tensor import Replicate
         q = q.redistribute(q.device_mesh, [Replicate() if p.is_shard(2) else p
                                            for p in q.placements])
         return attn.group_heads(q, n_kv)
     return q.unsqueeze(3)
+
+
+def _kv_for(q, k):
+    """A decode token's K or V heads where ``_group_heads`` kept its H
+    query heads sharded (q (B,1,H,1,dh)) against a cache whose KV heads
+    are whole on those mesh axes: each rank's own query heads' KV heads,
+    read from its replica of the cache, as XLA slices them (a view where
+    the rank's heads share one KV head), and not the cache repeated to all
+    H heads on every rank."""
+    axes = [i for i, p in enumerate(q.placements) if p.is_shard(2)] if _dtensor(q) else []
+    if not _dtensor(k) or q.shape[1] != 1 or q.shape[2] == k.shape[2] or _sharded_on(k, 2) \
+            or not axes or any(k.placements[i].is_shard() for i in axes):
+        with XlaForms():             # the repeat, its products in their forms
+            return attn.repeat_kv(q, k)
+    n_q, n_kv = q.shape[2], k.shape[2]
+    local_q = q.to_local().shape[2]
+    rank = 0
+    for i in axes:
+        rank = rank * q.device_mesh.size(i) + q.device_mesh.get_local_rank(i)
+    heads = [h * n_kv // n_q for h in range(rank * local_q, (rank + 1) * local_q)]
+    kl = k.to_local()
+    if len(set(heads)) == 1:
+        kl = kl.narrow(2, heads[0], 1).expand(kl.shape[:2] + (local_q,) + kl.shape[3:])
+    else:
+        kl = kl.index_select(2, torch.tensor(heads, device=kl.device))
+    pl = [q.placements[i] if i in axes else p for i, p in enumerate(k.placements)]
+    return _from_local(kl, k.device_mesh, pl, tuple(k.shape[:2]) + (n_q,) + tuple(k.shape[3:]))
+
+
+def _cache_seq_sharded_on(names) -> bool:
+    """Whether the active rules shard a decode cache's sequence on one of
+    the mesh axes ``names``."""
+    _, rules = sharding.active()
+    return any(m in names for cand in (rules or {}).get("cache_seq", ()) for m in cand)
+
+
+def _unembed(x, table):
+    """The logits' product ``x @ table.T`` of a train step under ZeRO-1
+    (``sharding.ZERO1``), where the table is whole on every rank and the
+    rows of ``x`` are sharded over the ZeRO-1 axis: the table's gradient as
+    GSPMD makes it (``_Unembed``).  The optimizer state shards the table's
+    rows over that axis, and GSPMD makes the gradient in that layout; the
+    axis is busy with the rows' partial sums, so it splits the rows over an
+    idle mesh axis of the same size (one on which both operands are whole),
+    each rank computing its block of the table's rows, all-reduces the
+    block over the rows' axes, and moves it onto the ZeRO-1 axis by a
+    collective-permute (the HLO of a train step under ep with the table
+    unsharded).  Without ZeRO-1 the whole gradient is all-reduced, as
+    DTensor does."""
+    _, rules = sharding.active()
+    zero = [m for cand in (rules or {}).get(sharding.ZERO1, ()) for m in cand]
+    if _dtensor(x) and _dtensor(table) and torch.is_grad_enabled() and table.requires_grad \
+            and len(zero) == 1 and zero[0] in table.device_mesh.mesh_dim_names \
+            and not any(p.is_shard() for p in table.placements):
+        dm = table.device_mesh
+        z = dm.mesh_dim_names.index(zero[0])
+        idle = [i for i, p in enumerate(x.placements) if not p.is_shard() and i != z
+                and dm.size(i) == dm.size(z)]
+        if x.placements[z].is_shard() and not _sharded_on(x, -1) and idle \
+                and table.shape[0] % dm.size(z) == 0:
+            return _Unembed.apply(x, table, idle[0], z)
+    return _matmul(x, table.T)
+
+
+class _Unembed(torch.autograd.Function):
+    """``x @ table.T``, whose backward makes the table's gradient as
+    ``_unembed`` says: each rank's block of the table's rows along mesh dim
+    ``idle`` from its own rows, all-reduced over the mesh dims that shard the
+    rows, moved onto mesh dim ``zero`` by one collective-permute (recorded
+    as such: the trace needs its bytes, not its pairs), and returned sharded
+    on that dim."""
+
+    @staticmethod
+    def forward(ctx, x, table, idle, zero):
+        ctx.save_for_backward(x, table)
+        ctx.dims = (idle, zero)
+        lead = string.ascii_lowercase[:x.dim() - 1]
+        return dot_general(x, table, f"{lead}y,zy->{lead}z")
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        from torch.distributed.tensor import Replicate, Shard
+        x, table = ctx.saved_tensors
+        idle, zero = ctx.dims
+        lead = string.ascii_lowercase[:x.dim() - 1]
+        gx = dot_general(g, table, f"{lead}z,zy->{lead}y")
+        dm = table.device_mesh
+        block = table.shape[0] // dm.size(idle)
+        gl = g.redistribute(dm, x.placements).to_local()
+        gl = gl.narrow(-1, dm.get_local_rank(idle) * block, block)
+        gt = _dot_general(gl, x.to_local(), 2, f"{lead}z,{lead}y->zy")
+        for i, p in enumerate(x.placements):
+            if p.is_shard():
+                gt = funcol.wait_tensor(funcol.all_reduce(gt, "sum", (dm, i)))
+        gt = _permuted(gt, dm, idle, 0)
+        placements = [Shard(0) if i == zero else Replicate() for i in range(dm.ndim)]
+        return gx, _from_local(gt, dm, placements, tuple(table.shape)), None, None
 
 
 def _microbatches(a, n, moe_groups=0):
@@ -595,12 +738,67 @@ def _microbatches(a, n, moe_groups=0):
     dm = a.device_mesh
     want = [Shard(0) if m in row_axes else Shard(1) if m in seq_axes else Replicate()
             for m in dm.mesh_dim_names]
+    resliced = _resliced(a, n, row_axes)
     if list(a.placements) != want:
         a = a.redistribute(dm, want)
     local = a.to_local()
-    return tuple(_from_local(part, dm, want, (rows,) + tuple(a.shape[1:]))
-                 for part in local.reshape((n, local.shape[0] // n)
-                                           + tuple(local.shape[1:])).unbind(0))
+    out = tuple(_from_local(part, dm, want, (rows,) + tuple(a.shape[1:]))
+                for part in local.reshape((n, local.shape[0] // n)
+                                          + tuple(local.shape[1:])).unbind(0))
+    for t in out:
+        t.resliced = resliced
+    return out
+
+
+def _resliced(a, n, row_axes) -> bool:
+    """Whether XLA's loop holds each of the ``n`` microbatches of batch
+    ``a`` with its rows on other ranks than the step's constraints put them
+    on: XLA tiles the rows of the (n, B/n) reshape over the minor B's ranks
+    (R/n of the R that shard the batch, or none where R <= n), which the
+    rows' axes match only where they are the batch's trailing axes.  Rows
+    that no whole mesh axis divides run whole on every rank here (XLA keeps
+    them on part of an axis): no layout to move between."""
+    dm = a.device_mesh
+    axes = [m for m, p in zip(dm.mesh_dim_names, a.placements) if p.is_shard(0)]
+    ranks = math.prod(dm.size(dm.mesh_dim_names.index(m)) for m in axes)
+    if ranks <= n or ranks % n or not row_axes:
+        return False
+    return tuple(axes[len(axes) - len(row_axes):]) != tuple(row_axes) \
+        or math.prod(dm.size(dm.mesh_dim_names.index(m)) for m in row_axes) != ranks // n
+
+
+def _from_batch(x, leaf):
+    """``x``, made from the batch leaf ``leaf`` (the embedding of the
+    tokens; the logits against the labels): where XLA's loop holds the
+    microbatch's leaf on other ranks than the constraints hold ``x``
+    (``_resliced``, marked on the microbatch's leaves by
+    ``_microbatches``), GSPMD moves ``x`` between the two by a
+    collective-permute each way, in the forward and in the backward: the
+    tokens' embedding to the constrained layout, the logits to the labels'
+    (the HLO of a microbatched dp train step on the multi mesh)."""
+    if getattr(leaf, "resliced", False) and _dtensor(x):
+        return _Moved.apply(x)
+    return x
+
+
+class _Moved(torch.autograd.Function):
+    """The identity, whose forward and backward each move the local shard
+    by one collective-permute (recorded as such; the trace needs its bytes,
+    not its pairs)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _moved(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _moved(g) if _dtensor(g) else g
+
+
+def _moved(x):
+    axis = next((i for i, p in enumerate(x.placements) if p.is_shard()), 0)
+    local = _permuted(x.to_local(), x.device_mesh, axis, 0)
+    return _from_local(local, x.device_mesh, list(x.placements), tuple(x.shape))
 
 
 def _block_view(xb, n_blocks):
@@ -745,7 +943,9 @@ _REWRITES = {
     torch.gather: _gather, torch.Tensor.gather: _gather,
     torch.Tensor.__getitem__: _getitem, F.pad: _pad,
     torch.stack: _stack,
-    attn.group_heads: _group_heads, train_step.microbatches: _microbatches,
+    attn.group_heads: _group_heads, attn.kv_for: _kv_for,
+    train_step.microbatches: _microbatches,
+    tfm.unembed: _unembed, tfm.from_batch: _from_batch,
     layers.shift: _shift, rglru.block_view: _block_view, rglru.block_unview: _block_unview,
     rwkv.fold_shards: _fold_shards,
     rwkv.unfold_shards: _unfold_shards, moe.group_tokens: _group_tokens,

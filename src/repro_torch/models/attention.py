@@ -21,7 +21,8 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.overrides import handle_torch_function, has_torch_function_unary
+from torch.overrides import (handle_torch_function, has_torch_function,
+                             has_torch_function_unary)
 
 from ..kernels.decode_attention import flash_decode
 from ..kernels.flash_attention import flash_attention
@@ -77,7 +78,15 @@ def kv_for(q, k):
     or, where q has one group a query head (KV' = H, the trace's form of an
     uneven split), each KV head repeated for its G query heads.  The repeat
     is a view where no gradient flows, and a product with a 0/1 matrix where
-    one does (the view's gradient would split the sharded heads unevenly)."""
+    one does (the view's gradient would split the sharded heads unevenly).
+    A traced decode token's heads read their own KV heads (``xlaforms``)."""
+    if has_torch_function((q, k)):
+        return handle_torch_function(kv_for, (q, k), q, k)
+    return repeat_kv(q, k)
+
+
+def repeat_kv(q, k):
+    """``kv_for``'s repeat, as it runs outside a trace's forms."""
     B, T, n_kv, dh = k.shape
     n_q = q.shape[2]
     if n_q == n_kv:
@@ -114,6 +123,14 @@ def blocked_attention(q, k, v, positions_q, positions_kv, window=None, block=Non
     Skv = k.shape[1]
     if block is None:
         block = max(512, min(4096, Skv // 8))
+    # the last block padded to the block's length, as the JAX package pads
+    # it: the padded keys sit at position 2**30, which no query sees
+    pad = -Skv % block
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        positions_kv = torch.nn.functional.pad(positions_kv, (0, pad), value=2**30)
+        Skv += pad
     scale = 1.0 / math.sqrt(dh)
     pq = positions_q[:, None, None, :, None]                       # (B,1,1,Sq,1)
     m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -134,8 +151,6 @@ def blocked_attention(q, k, v, positions_q, positions_kv, window=None, block=Non
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bkgqt,btkd->bkgqd", p, vv.float())
         m = m_new
-    # the JAX version pads the last block with positions 2**30, which are
-    # masked, so a block-aligned Skv and a ragged one give the same result
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(v.dtype)                  # (B,Sq,KV,G,dh)
 
@@ -205,14 +220,14 @@ def decode_attention(p, cache, x, position, *, n_heads, n_kv, d_head,
     cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
     cache["pos"][bidx, slot] = position.to(torch.int32)
-    kk, vv, pos_kv = cache["k"], cache["v"], cache["pos"]
-    g = n_heads // n_kv
+    pos_kv = cache["pos"]
     q = maybe_constrain(q, ("batch", None, "kv_heads", "heads", "head_dim"))
+    kk, vv = kv_for(q, cache["k"]), kv_for(q, cache["v"])
     if use_kernel:
         o = flash_decode(q.reshape(B, n_heads, d_head),
                          kk.permute(0, 2, 1, 3), vv.permute(0, 2, 1, 3),
                          pos_kv, position.to(torch.int32), window=window)
-        return o.reshape(B, 1, n_kv, g, d_head), cache
+        return o.reshape(q.shape), cache
     s = torch.einsum("bqkgd,btkd->bkgqt", q, kk).float() / math.sqrt(d_head)
     pq = position[:, None, None, None, None]
     pt = pos_kv[:, None, None, None, :]

@@ -93,6 +93,33 @@ def shift(x, k: int):
     return F.pad(x, (0, 0, k, 0))[:, :x.shape[1]]
 
 
+# ---------------------------------------------------------------- scan steps
+
+_SCANS: list = []          # (loop, run, step) of each enclosing scanned loop
+_RUNS = [0]
+
+
+def scan_steps(loop: str, n: int):
+    """``range(n)``, the steps of a loop that the JAX package runs as a
+    ``lax.scan`` (the layer units, the WKV's chunks).  While each step runs,
+    ``scan_scope`` names it: the measurement counts the stacks XLA's loop
+    keeps of each step's residuals."""
+    _RUNS[0] += 1
+    run = _RUNS[0]
+    for i in range(n):
+        _SCANS.append((loop, run, i))
+        try:
+            yield i
+        finally:
+            _SCANS.pop()
+
+
+def scan_scope() -> tuple:
+    """The (loop, run, step) of each scanned loop step running now,
+    outermost first."""
+    return tuple(_SCANS)
+
+
 # ----------------------------------------------------------------- embeddings
 
 def embed_lookup(p, tokens):

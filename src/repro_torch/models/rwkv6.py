@@ -22,7 +22,7 @@ from torch.overrides import handle_torch_function, has_torch_function
 from ..kernels.ref import rwkv6_wkv_ref
 from ..kernels.rwkv6_kernel import rwkv6_wkv
 from ..launch.sharding import maybe_constrain
-from .layers import proj_heads, shift
+from .layers import proj_heads, scan_steps, shift
 from .module import ParamSpec
 
 LORA_MIX = 32
@@ -107,7 +107,7 @@ def wkv_chunked(r, k, v, w_log, u, chunk: int = 16):
     causal = (t_idx[None, :] < t_idx[:, None])[None, None]     # (1,1,C,C) s < t
     state = torch.zeros((B, H, hs, hs), dtype=torch.float32, device=r.device)
     outs = []
-    for ci in range(nc):
+    for ci in scan_steps("chunks", nc):
         rt, kt, vt, wt = rc[:, ci], kc[:, ci], vc[:, ci], wc[:, ci]   # (B,C,H,hs)
         lp = torch.cumsum(wt, dim=1)                                 # inclusive, f32
         lp_prev = lp - wt

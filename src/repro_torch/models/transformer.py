@@ -21,7 +21,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.overrides import _get_current_function_mode_stack
+from torch.overrides import (_get_current_function_mode_stack, handle_torch_function,
+                             has_torch_function)
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -30,7 +31,7 @@ from . import moe as moe_mod
 from . import rglru as rg
 from . import rwkv6 as rwkv
 from .layers import (act_fn, apply_glu_mlp, apply_norm, apply_plain_mlp,
-                     embed_lookup, glu_mlp_specs, norm_specs, plain_mlp_specs)
+                     embed_lookup, glu_mlp_specs, norm_specs, plain_mlp_specs, scan_steps)
 from .module import ParamSpec, map_specs, stack_layer_specs, tree_map
 from ..configs.base import ModelConfig, RunPolicy
 from ..launch.sharding import maybe_constrain
@@ -171,11 +172,31 @@ def unembed_logits(params, cfg: ModelConfig, x):
     if cfg.frontend == "encodec":
         logits = torch.einsum("...d,kvd->...kv", x.float(), table)
     else:
-        logits = x.float() @ table.T
+        logits = unembed(x.float(), table)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     return logits
+
+
+def from_batch(x, leaf):
+    """``x``, made from the batch leaf ``leaf`` (the tokens' embedding, the
+    logits scored against the labels): itself.  While a microbatched train
+    step is traced on a mesh, the trace's forms move it between the ranks
+    XLA's loop holds the microbatch on and those the step's constraints ask
+    for, as GSPMD does."""
+    if has_torch_function((x, leaf)):
+        return handle_torch_function(from_batch, (x, leaf), x, leaf)
+    return x
+
+
+def unembed(x, table):
+    """``x @ table.T``: the logits' product.  While a train step is traced
+    on a mesh, the trace's forms (``launch/xlaforms.py``) make the table's
+    gradient as GSPMD makes it under ZeRO-1."""
+    if has_torch_function((x, table)):
+        return handle_torch_function(unembed, (x, table), x, table)
+    return x @ table.T
 
 
 # ------------------------------------------------------------ full-seq blocks
@@ -457,7 +478,7 @@ def forward(params, batch, cfg: ModelConfig, policy: RunPolicy,
     cd = compute_dtype(policy)
     cparams = cast_params(params, cd)
     x, positions = embed_tokens(cparams, cfg, batch, cd)
-    x = maybe_constrain(x, ("batch", "seq_q", "act_embed"))
+    x = maybe_constrain(from_batch(x, batch["tokens"]), ("batch", "seq_q", "act_embed"))
     pattern = cfg.block_pattern
     n_units, tail = n_units_tail(cfg)
     cl = cache_len if return_cache else None
@@ -475,7 +496,7 @@ def forward(params, batch, cfg: ModelConfig, policy: RunPolicy,
 
     unit_fn_r = _remat_wrap(unit_fn, policy)
     unit_states = []
-    for u in range(n_units):
+    for u in scan_steps("units", n_units):
         x, a, st = unit_fn_r(x, _unit(cparams["units"], u))
         aux = aux + a
         unit_states.append(st)
@@ -531,6 +552,7 @@ def lm_loss(logits, labels):
     """Cross-entropy with mask (labels < 0 ignored). logits f32, (..., V) over
     labels (...): encodec's (B,S,K,V) over (B,S,K), the vit's labels -1 over
     the patch prefix."""
+    logits = from_batch(logits, labels)
     V = logits.shape[-1]
     mask = labels >= 0
     labels_c = labels.clamp(0, V - 1).long()

@@ -110,8 +110,28 @@ def make_train_step(cfg: ModelConfig, policy: RunPolicy, opt: OptConfig, mesh=No
         loss, aux, grads = compute_grads(cfg, policy, params, batch)
         new_params, new_opt, stats = opt_update(opt, grads, opt_state, params)
         metrics = {"loss": loss, "moe_lb": aux[0], "moe_drop": aux[1], **stats}
-        return new_params, new_opt, metrics
+        return _map2(_gathered_as, new_params, params), new_opt, metrics
     return train_step
+
+
+def _map2(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _map2(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def _gathered_as(new, param):
+    """``new`` (a parameter's update) gathered on the mesh dims where the
+    parameter is whole and the update sharded: under ZeRO-1 the update is
+    made on the optimizer state's data shards, and the JAX package's step
+    returns each parameter in its argument's sharding (a donated output),
+    which XLA's partitioner all-gathers.  Elsewhere ``new`` itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not (isinstance(new, DTensor) and isinstance(param, DTensor)):
+        return new
+    want = [Replicate() if p.is_replicate() and q.is_shard() else q
+            for p, q in zip(param.placements, new.placements)]
+    return new.redistribute(new.device_mesh, want) if want != list(new.placements) else new
 
 
 # ------------------------------------------------ the compressed pod reduction

@@ -96,7 +96,7 @@ def _stub(monkeypatch, mod=engine_mod, fp_of=None, fail_on=(), blowup=None):
     def fake_build_cell(cfg, shape, policy, mesh, opt):
         return (cfg.name, shape.name, str(policy))
 
-    def fake_lower_cell(cell, chip=None, device=None):
+    def fake_lower_cell(cell, chip=None, device=None, fingerprint=True):
         return _FakeLowered(cell, "fp:" + (repr(cell) if fp_of is None else fp_of(cell)))
 
     def fake_compile_lowered(lc, chip=None):
