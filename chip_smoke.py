@@ -95,15 +95,18 @@ Phases (any failure exits non-zero and prints no result line):
               ``POINT_KIND_DIFFERENCES``, ``REFERENCE_ABORTS``) as the
               corpus points are.
 3d''. measure pairs — ``chip_smoke.py --measure-pair INDEX``, a process a
-              point, from the build to the search phase's end (collected
-              before the serving and training phases): the pairs file's points
+              point, from the kernels phases' end to the search phase's end
+              (collected before the serving and training phases): the pairs file's points
               ``parity.SMOKE_PAIRS`` (19: qwen2-1.5b decode_s under tp
               against an unsharded cache; 29: rwkv6-7b train_s under dp on
               the multi mesh in 4 microbatches) measured by the port's
               engine at a low priority, each point's kinds today's
-              reference's or a listed difference.  The measure phase also prints the counters of
-              ``parity.COUNTER_GAPS`` (the rwkv6-7b A1 witness's roofline
-              efficiency and collective blowup) beside the reference's.
+              reference's or a listed difference.  The measure phase also
+              prints the rwkv6-7b A1 witness's bytes a device by phase
+              (forward in loops, forward outside them, backward) and wire a
+              device by kind, and holds its roofline efficiency and
+              collective blowup within ``parity.COUNTER_BOUND`` of the
+              reference's (``parity.WITNESS_COUNTERS``).
 3e. corpus — the port's replay of the 8 committed corpus entries,
               ``python -m repro_torch.core.corpus replay --parity`` on fake
               cuda tensors in a process of its own, run on the host beside
@@ -205,9 +208,9 @@ Phases (any failure exits non-zero and prints no result line):
               f32 step's gradients, kernels on against off, leaf by leaf (the
               projector and the codebook tables among them).
 11b. dryrun (slice 8) — ``chip_smoke.py --dryrun``, a process of its own
-              started after the build, on the host beside every phase up to
-              the corpus: ``python -m repro_torch.launch.dryrun``'s cells on
-              fake cuda tensors over the 16x16 production mesh
+              started after the kernels phases, on the host beside every
+              phase up to the corpus: ``python -m repro_torch.launch.dryrun``'s
+              cells on fake cuda tensors over the 16x16 production mesh
               (``DRYRUN_CELLS``: qwen2-1.5b train_4k under dp in 2
               microbatches, the microbatch split at production size;
               rwkv6-7b long_500k; the skip of
@@ -2918,13 +2921,21 @@ def measure_main():
                                                 policy.n_microbatch)
         if unlisted:
             fail(f"measure: the {role} {key} ran unlisted ops replicated: {unlisted}")
-        gap = parity.COUNTER_GAPS.get(parity.corpus_key(p, role))
-        if gap is not None:        # the rwkv6-7b A1 witness's counters beside the reference's
-            print(f"measure {cfg.name} {kind} {role}: " + ", ".join(
-                f"{k} {c[k]:.4f} (CPU trace {v[0]}, reference {v[1]})"
-                for k, v in gap[0].items()), flush=True)
         row = {"kind": kind, "role": role, "point": key, "kinds": kinds,
                "trace_s": m.compile_s, "counters": c}
+        held = parity.WITNESS_COUNTERS.get(parity.corpus_key(p, role))
+        if held is not None:       # the rwkv6-7b A1 witness: bytes by phase, wire by kind
+            print(f"measure witness {cfg.name} {shape.name} {policy.sharding_preset}: bytes a "
+                  f"device by phase {json.dumps(m.hlo['bytes_by_phase'])}; wire a device by "
+                  f"kind {json.dumps(m.hlo['collective_wire'])}; " + ", ".join(
+                      f"{k} {c[k]:.4f} (CPU trace {v[0]}, reference {v[1]})"
+                      for k, v in held[0].items()), flush=True)
+            row["bytes_by_phase"] = m.hlo["bytes_by_phase"]
+            row["collective_wire"] = m.hlo["collective_wire"]
+            for k, (_, v_ref) in held[0].items():
+                if abs(c[k] / v_ref - 1) > parity.COUNTER_BOUND and held[1] is None:
+                    fail(f"measure: the witness {key}'s {k} {c[k]:.4f} is not within "
+                         f"{parity.COUNTER_BOUND:.0%} of the reference's {v_ref}")
         on = dataclasses.replace(policy, use_pallas=True)
         before = ops.launch_counts()
         with warnings.catch_warnings():
@@ -3468,14 +3479,6 @@ def main():
                 print(f"ptxas {name} {kernel}: {w}", flush=True)
 
     phase_seconds = {}
-    # the dry-run traces on the host only, in a process of its own, from here
-    # to the measure phase's end (its qwen2-1.5b train cell takes minutes)
-    t_dry = time.perf_counter()
-    dry = dryrun_start()
-    # so do the pairs points, a process each, from here to the search
-    # phase's end (rwkv6-7b's microbatched train steps take minutes to trace)
-    pairs = [subprocess_phase_start("--measure-pair", str(i))
-             for i in sorted(parity_smoke_pairs())]
     phase("kernels")
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -3523,6 +3526,16 @@ def main():
     del timer
     torch.cuda.empty_cache()
 
+    # the kernels are timed with no process of this script's beside them; the
+    # dry-run traces on the host only, in a process of its own, from here to
+    # the measure phase's end (its qwen2-1.5b train cell takes minutes)
+    t_dry = time.perf_counter()
+    dry = dryrun_start()
+    # so do the pairs points, a process each, from here to the search
+    # phase's end (rwkv6-7b's microbatched train steps take minutes to trace)
+    pairs = [subprocess_phase_start("--measure-pair", str(i))
+             for i in sorted(parity_smoke_pairs())]
+
     phase("bench_step")
     t_phase = time.perf_counter()
     bench = bench_step(dev)
@@ -3558,7 +3571,7 @@ def main():
     dried = dryrun_finish(dry)
     phase_seconds["dryrun (waited)"] = time.perf_counter() - t_phase
     print(f"dryrun: {len(dried)} production cells in {time.perf_counter() - t_dry:.1f} s "
-          f"(beside the phases since the build): "
+          f"(beside the phases since the kernels'): "
           f"{json.dumps({r['cell']: [r['status'], round(r['host_s'], 1)] for r in dried})} "
           f"(status, host seconds)", flush=True)
     print(f"corpus: {replayed['entries']} entries replayed in {replayed['seconds']:.1f} s "
@@ -3584,7 +3597,8 @@ def main():
     phase_seconds["measure pairs (waited)"] = time.perf_counter() - t_phase
     print(f"measure pairs: {len(measured_pairs)} pairs points, "
           f"{json.dumps({r['index']: round(r['seconds'], 1) for r in measured_pairs})} "
-          f"seconds each (a process each, from the build to the search phase's end)",
+          f"seconds each (a process each, from the kernels phases' end to the search "
+          f"phase's end)",
           flush=True)
 
     phase("serve")

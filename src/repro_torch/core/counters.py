@@ -246,8 +246,9 @@ def measure_cell(cell, chip: hw.ChipSpec = hw.V5E, device: str = "cuda") -> Meas
 
 
 def main(argv=None):
-    """``python -m repro_torch.core.counters --arch qwen2-1.5b --shape train_s``:
-    measure one bench point and print its counters and anomaly kinds."""
+    """``python -m repro_torch.core.counters --arch qwen2-1.5b --shape train_s``
+    (or ``--pair INDEX``): measure one bench point and print its counters,
+    anomaly kinds, bytes a device by phase and wire a device by kind."""
     import argparse
     from . import anomaly
     from .benchscale import BENCH_SHAPES, bench_archs, bench_meshes
@@ -259,20 +260,34 @@ def main(argv=None):
     ap.add_argument("--preset", default="fsdp", choices=("fsdp", "tp", "ep", "dp"))
     ap.add_argument("--remat", default="none", choices=("none", "dots", "full"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pair", type=int, default=None,
+                    help="the point of benchmarks/results/bench_fidelity_pairs.json at "
+                         "this index instead")
     a = ap.parse_args(argv)
-    space = SearchSpace(bench_archs([a.arch]), BENCH_SHAPES)
-    point = {k: v[0] for k, v in space.factors.items()}
-    point.update(arch=a.arch, shape=a.shape, mesh=a.mesh, preset=a.preset, remat=a.remat,
-                 n_microbatch=1, grad_compress="none", seq_shard=True, cache_shard=True,
-                 vocab_shard=True, scan_layers=True, attn_impl="auto", zero1=True,
-                 optimizer="adamw", params_f32=True)
+    if a.pair is not None:
+        import pathlib
+        from .parity import pair_points
+        pairs = pathlib.Path(__file__).resolve().parents[3] / "benchmarks" / "results" \
+            / "bench_fidelity_pairs.json"
+        point = next(p for i, p, _ in pair_points(pairs)[2] + pair_points(pairs, moe=True)[2]
+                     if i == a.pair)
+        space = SearchSpace(bench_archs([point["arch"]]), BENCH_SHAPES)
+    else:
+        space = SearchSpace(bench_archs([a.arch]), BENCH_SHAPES)
+        point = {k: v[0] for k, v in space.factors.items()}
+        point.update(arch=a.arch, shape=a.shape, mesh=a.mesh, preset=a.preset, remat=a.remat,
+                     n_microbatch=1, grad_compress="none", seq_shard=True, cache_shard=True,
+                     vocab_shard=True, scan_layers=True, attn_impl="auto", zero1=True,
+                     optimizer="adamw", params_f32=True)
     cfg, shape, policy, mesh_kind = space.to_run(space.normalize(point))
     from ..launch.steps import build_cell
     m = measure_cell(build_cell(cfg, shape, policy, bench_meshes()[mesh_kind]),
                      device=a.device)
     c = m.counters()
     print(json.dumps({"counters": c, "trace_s": m.compile_s,
-                      "kinds": sorted(anomaly.kinds(c, policy.remat))}, indent=1))
+                      "kinds": sorted(anomaly.kinds(c, policy.remat)),
+                      "bytes_by_phase": m.hlo["bytes_by_phase"],
+                      "collective_wire": m.hlo["collective_wire"]}, indent=1))
 
 
 if __name__ == "__main__":

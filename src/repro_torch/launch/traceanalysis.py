@@ -21,7 +21,10 @@ signature on global shapes.  From the records, ``analyze`` reckons:
                         program (``fusion_groups``): elementwise chains
                         fused with their producers and consumers (a cheap
                         producer read by several fusions duplicated into
-                        each), a reduction closing a loop fusion, products,
+                        each, one that reads more than it writes where
+                        XLA's all-paths condition holds, and into the
+                        copies of products' operands), a reduction
+                        closing a loop fusion, products,
                         kernels, gathers, scatters, concatenations and
                         collectives alone.  A fusion reads each external
                         tensor once, slice-aware, and writes what is read
@@ -54,6 +57,11 @@ signature on global shapes.  From the records, ``analyze`` reckons:
                         one all-reduce over the joint group, and the
                         group the reference's analyzer reads where XLA
                         writes the replica groups out as a list;
+* ``bytes_by_phase``  — ``bytes_hbm`` by the phase of each group's last
+                        record: "forward in loops" (in a scanned loop's
+                        step, the residual stacks included), "forward"
+                        (outside the loops, the optimizer's update
+                        included), "recompute" and "backward";
 * ``peak_bytes``      — the step's arguments plus the most bytes of local
                         storages alive at once over the trace, less the
                         donated arguments whose outputs are new storages
@@ -311,6 +319,9 @@ class Recorder(TorchDispatchMode):
                 if src.shape == outs[0].shape and src.numel() > 1 \
                         and src.stride() != outs[0].stride():
                     rec["transpose"] = True
+        elif packet is xlaforms.wire_op:        # a collective recorded, no data moved
+            rec["kind"] = "collective"
+            rec["coll"], rec["group"] = args[1], args[2]
         elif name.startswith(("_c10d_functional.", "_dtensor.")):
             kind = _FUNCTIONAL.get(name.split(".")[1])
             if kind == "all-to-all" and _one_peer(args):
@@ -605,7 +616,11 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
       by its step and read by the backward from the loop's stack, whose
       dynamic-update-slice is a "stack" group (the residual read and
       written) at each loop level; the stack's dynamic-slice writes the
-      layout a product of the backward takes.
+      layout a product of the backward takes.  The backward of an outer
+      loop slices its step's whole stack of an inner loop's residuals (the
+      WKV's chunks in a layer unit) out of its own stack, read and written
+      once more at each level but the innermost, whose slices are read by
+      the fusions that consume them.
     * A fusion's output is written where a standalone op, a collective or
       the step's result reads it, or a later fusion that does not
       duplicate it; a reduction's output always.  An elementwise producer
@@ -613,6 +628,27 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
       inputs again, where it is cheap (not one of XLA's expensive ops) and
       reads no more bytes than it writes; else it is written once and read
       by each.  A producer fused in through a slice computes that slice.
+    * A cheap elementwise producer that reads more bytes than it writes (an
+      ``add`` of several tensors) is held to XLA's own condition
+      (``InstructionFusion::ComputeGloballyUnfusible``): it is duplicated
+      into each fusion that reads it where it fuses into every consumer on
+      every path, and written once where one refuses it.  What a consumer
+      takes was read off XLA's CPU pipeline (jax 0.9.0, small functions
+      compiled and their fusions read; ``tests/test_torch_xla_rules.py``):
+      elementwise ops take it; so does the copy XLA makes of a product's
+      operand in another layout than its dot takes (a transpose, which XLA
+      moves above an elementwise op, so its fusion computes the producer
+      from its operands even where the producer is written for another
+      consumer: a "layout" group); so does a reduction over at most 32
+      elements, or of a bf16 input (XLA upcasts it in a fusion first); a
+      product that takes the operand's layout refuses it, as does a wider
+      f32 reduction, which XLA's tree-reduction rewrite splits into a
+      reduce-window that fuses nothing (``_takes_fused``,
+      ``_fused_on_all_paths``; a path of two steps is checked, where the
+      second consumer also reads the first).  A pad producing such a
+      duplicated sum (the transpose of a slice: ``xlaforms._Streams``) is
+      written by its own fusion, as XLA writes it; a lone pad read by
+      several fusions is duplicated like any cheap op.
     * A fusion reads each external tensor once, slice-aware; a standalone
       op reads its inputs and writes its outputs, a lookup only the rows it
       gathers, an in-place update (a cache's ``index_put_``) only the
@@ -665,23 +701,39 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
 
     # which fusible records write their outputs (reverse order: every
     # consumer is decided before its producer), and for those that do not,
-    # the fusions that compute them
-    written, roots = {}, {}
+    # the fusions that compute them: a record's own index, or (j, n) for the
+    # copy XLA makes of operand n of product j
+    written, roots, narrowing = {}, {}, set()
     for k in range(len(records) - 1, -1, -1):
         if roles[k] not in fusible:
             continue
-        ids = {c(w[0]) for w in records[k]["writes"]}
+        r = records[k]
+        ids = {c(w[0]) for w in r["writes"]}
         cons = {j for i in ids for j in consumers.get(i, ())}
-        mat = bool(ids & (outs | stacked.keys())) or any(roles[j] not in fusible for j in cons) \
-            or (roles[k] == "reduce" and bool(cons))
+        mat = bool(ids & (outs | stacked.keys())) or (roles[k] == "reduce" and bool(cons))
+        rest = [j for j in cons if roles[j] not in fusible]
+        copies, others = _copy_consumers(rest, ids, records, c)
         groups = set()
         for j in cons:
             if roles[j] in fusible:
-                groups |= {j} if written[j] else roots[j]
-        if len(groups) > 1 and not mat:
-            r = records[k]
-            mat = _name(r).rstrip("_") in _EXPENSIVE or \
-                sum(a[1] for a in r["reads"]) > sum(w[1] for w in r["writes"])
+                groups |= ({j} if written[j] else set()) | roots[j]
+        expensive = _name(r).rstrip("_") in _EXPENSIVE
+        if roles[k] == "fuse" and not expensive \
+                and sum(a[1] for a in r["reads"]) > sum(w[1] for w in r["writes"]):
+            # narrowing: duplicated where it fuses on all paths; a product's
+            # copy computes it from its operands even where it is written
+            groups |= copies
+            mat = mat or bool(others) or (len(groups) > 1 and not _fused_on_all_paths(
+                cons, ids, records, roles, written, c))
+            if not mat and len(groups) > 1:
+                narrowing.add(k)
+            written[k] = mat
+            roots[k] = copies if mat else groups
+            continue
+        mat = mat or bool(rest) or (len(groups) > 1 and expensive)
+        # a pad whose chain is duplicated is written by its own fusion
+        if _name(r) == "constant_pad_nd" and any(j in narrowing for j in cons):
+            mat = True
         written[k] = mat
         roots[k] = set() if mat else groups
 
@@ -693,6 +745,32 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
                 and not (producer.get(c(r["reads"][0][0])) in roots
                          and not written[producer[c(r["reads"][0][0])]])}
 
+    def fused(k, accesses, force=None):
+        """The producers a fusion rooted at record ``k`` computes to make
+        ``accesses`` ((access, (shape, dtype)) pairs), each through the
+        views it reads them by, and the external tensors it reads (``force``:
+        a producer computed even though it is written, as a product's copy
+        computes its operand's)."""
+        members, reads, stack, seen = [], [], [(accesses, 1.0, ())], set()
+        while stack:
+            acc, frac, path = stack.pop()
+            for a, d in acc:
+                i = c(a[0])
+                p = producer.get(i)
+                if p is not None and p < k and roles[p] in fusible and (not written[p]
+                                                                        or p == force):
+                    sub = path + (a[3],) if a[1] < a[2] else path
+                    if (p, sub) not in seen:
+                        seen.add((p, sub))
+                        members.append(p)
+                        stack.append((list(zip(records[p]["reads"], records[p]["in"])),
+                                      frac * a[1] / max(a[2], 1), sub))
+                else:
+                    x = _f32((i,) + a[1:], d[1])
+                    reads.append((x[0], x[1] * frac, x[2], (x[3], path)))
+        return members, reads
+
+    copy_roots = {x for gs in roots.values() for x in gs if isinstance(x, tuple)}
     out, copied = [], set()
     carried, copied_stacks = {i: i for i in args}, set()
     for k, (r, role) in enumerate(zip(records, roles)):
@@ -700,6 +778,10 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
                 or (role in fusible and not written[k]):
             continue
         if role == "alone":
+            for n in (n for n in (0, 1) if (k, n) in copy_roots):
+                a, d = r["reads"][n], r["in"][n]
+                members, reads = fused(k, [(a, d)], producer.get(c(a[0])))
+                out.append(("layout", sorted(set(members)), _read_bytes(reads), _f32(a, d[1])[1]))
             out += _copies_for_product(k, r, records, c, producer, roles, args, copied,
                                        {v[3] for v in stacked.values()})
             prod = r["kind"] == "product"
@@ -729,29 +811,14 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
                         copied_stacks.add(root)
             out.append(("alone", [k], _read_bytes(reads), wb))
             continue
-        # a fusion: k and the producers it computes, each through the
-        # views it reads them by
-        members, reads, stack, seen = [k], [], [(k, 1.0, ())], {(k, ())}
-        while stack:
-            m, frac, path = stack.pop()
-            for a, d in zip(records[m]["reads"], records[m]["in"]):
-                i = c(a[0])
-                p = producer.get(i)
-                if p is not None and p < k and roles[p] in fusible and not written[p]:
-                    sub = path + (a[3],) if a[1] < a[2] else path
-                    if (p, sub) not in seen:
-                        seen.add((p, sub))
-                        members.append(p)
-                        stack.append((p, frac * a[1] / max(a[2], 1), sub))
-                else:
-                    x = _f32((i,) + a[1:], d[1])
-                    reads.append((x[0], x[1] * frac, x[2], (x[3], path)))
+        # a fusion: k and the producers it computes
+        members, reads = fused(k, list(zip(r["reads"], r["in"])))
         rb = _read_bytes(reads)
         wb = sum(_f32(w, d[1])[1] for w, d in zip(r["writes"], r["out"]))
         passes, temps = _PASSES.get(_name(r), (1, 0))
-        out.append((role, sorted(set(members)), passes * rb + temps * wb, wb))
+        out.append((role, sorted(set(members + [k])), passes * rb + temps * wb, wb))
     for i, (k, nb, levels, _) in stacked.items():
-        out += [("stack", [k], nb, nb)] * levels
+        out += [("stack", [k], nb, nb)] * (2 * levels - 1)
     return out
 
 
@@ -807,6 +874,67 @@ def _scan_residuals(records, roles, c, args) -> dict:
         if n:
             out[i] = (k, _f32(w, d[1])[1], n, si)
     return out
+
+
+def _copy_consumers(rest, ids, records, c):
+    """({(j, n)}, [j]): of the consumers ``rest`` of tensors ``ids`` that
+    stand alone, the products that read such a tensor as operand ``n`` in
+    another layout than XLA's CPU dot takes, through a copy (a transpose,
+    which XLA moves above an elementwise op: its fusion computes the op from
+    its operands), and the others, which read it from memory."""
+    copies, others = set(), []
+    for j in rest:
+        r = records[j]
+        reads = [(n, a) for n, a in enumerate(r["reads"]) if c(a[0]) in ids]
+        if "eqn" not in r or not reads or any(n > 1 or _dot_layout_ok(r["eqn"], n, a[3])
+                                              for n, a in reads):
+            others.append(j)
+        else:
+            copies |= {(j, n) for n, _ in reads}
+    return copies, others
+
+
+# a reduction over more elements than this is split by XLA's CPU backend into
+# a reduce-window and a reduce (its tree-reduction rewrite), which fuse
+# nothing: the producer of such a reduction is read from memory
+_TREE_REDUCTION = 32
+
+
+def _takes_fused(r) -> bool:
+    """Whether XLA fuses a producer into record ``r``'s fusion (see
+    ``fusion_groups``): an elementwise op does, and a reduction over at most
+    ``_TREE_REDUCTION`` elements, or of a bf16 input (upcast to f32 by a
+    fusion before the reduction)."""
+    if r["kind"] != "reduction":
+        return True
+    (shape, dtype), out = r["in"][0], r["out"][0][0]
+    n, m = math.prod(shape), math.prod(out)
+    reduced = n // m if m and m < n else (shape[-1] if shape else 1)
+    return reduced <= _TREE_REDUCTION or dtype in _NARROW
+
+
+def _fused_on_all_paths(cons, ids, records, roles, written, c) -> bool:
+    """XLA's condition for duplicating a producer (tensors ``ids``) that
+    reads more bytes than it writes into several fusions (``InstructionFusion
+    ::ComputeGloballyUnfusible``): it fuses into every consumer ``cons``, on
+    every path.  A consumer that stands alone is a product's copy
+    (``_copy_consumers``); one that fuses takes it (``_takes_fused``); and a
+    consumer that also reads another consumer of the producer, a path of two
+    steps, needs that one computed in its fusion, not written."""
+    for j in cons:
+        if roles[j] not in ("fuse", "reduce"):
+            continue
+        if not _takes_fused(records[j]):
+            return False
+        for a in records[j]["reads"]:
+            i = c(a[0])
+            if i in ids:
+                continue
+            q = next((q for q in cons if q != j and any(c(w[0]) == i for w in records[q]["writes"])),
+                     None)
+            if q is not None and (roles[q] not in ("fuse", "reduce") or written[q]):
+                return False
+    return True
 
 
 def _copies_for_product(k, r, records, c, producer, roles, args, copied, residuals) -> list:
@@ -898,6 +1026,9 @@ def _nbytes_of(shape, dtype: str) -> int:
     return math.prod(shape) * getattr(torch, dtype).itemsize
 
 
+_PHASE_NAMES = {"F": "forward", "R": "recompute", "G": "backward"}
+
+
 def analyze(records, arg_bytes: int = 0, out_new_bytes: int = 0,
             donated_bytes: int = 0, max_live: int = 0, arg_ids=(), out_ids=(),
             moe_ranks: int = 0) -> dict:
@@ -916,10 +1047,16 @@ def analyze(records, arg_bytes: int = 0, out_new_bytes: int = 0,
         coll_wire[kind] += nb * _WIRE_FACTOR[kind](max(group, 2))
         coll_count[kind] += 1
     groups = fusion_groups(records, out_ids, arg_ids)
+    phases = defaultdict(float)
+    for g in groups:
+        r = records[max(g[1])]
+        phases[_PHASE_NAMES[r["phase"]] + (" in loops" if r["scope"] and r["phase"] == "F"
+                                           else "")] += g[2] + g[3]
     return {
         "flops": flops,
         "remat_flops": remat,
         "bytes_hbm": sum(g[2] + g[3] for g in groups),
+        "bytes_by_phase": dict(phases),
         "transpose_bytes": sum(g[2] + g[3] for g in groups if g[0] == "copy" or (
             g[0] == "alone" and records[g[1][0]].get("transpose"))),
         "collective_bytes": dict(coll_bytes),

@@ -25,10 +25,11 @@ into the forms the reference's program has:
   not both moved onto a contracted dim (``_gathered_for_kept_shards``);
 * ``log_softmax`` of a DTensor sharded along the reduced dim becomes
   ``x - max - log(sum(exp(x - max)))``, whose reductions DTensor partitions
-  (partial results, all-reduced where they are made);
+  (partial results, all-reduced where they are made, the backward's too:
+  ``_GradSummed``);
 * ``gather`` of one element along a sharded dim (the label's log-prob)
-  becomes a masked sum over that dim, a partial sum that is all-reduced
-  (DTensor's masked partial loses its mask through the view that follows);
+  becomes a sum over that dim masked on each rank's own shard, its
+  backward a scatter of the gradient into the shard (``_Picked``);
   a gather of many along a sharded dim (MoE's combine) all-gathers that dim
   first and keeps the other dims' shards;
 * ``table[idx]`` of a 2-D table and an integer index becomes ``embedding``
@@ -40,11 +41,21 @@ into the forms the reference's program has:
   partitions the pad and slice back (``_shift``): each shard shifted, its
   first rows the previous rank's last, by one collective-permute, where
   DTensor's concatenation would all-gather the sequence;
+* ``cumsum`` of a DTensor along a dim no mesh dim shards runs on each
+  rank's shard, its backward too (``_Cumsum``: torch 2.11's DTensor would
+  gather the gradient for the flip of cumsum's backward);
 * a select of one entry of a sharded dim (the chunked WKV's loop over its
   chunks) gathers the dim once for every select into the tensor and
   copies the entry out, as XLA hoists the loop-invariant all-gather and
-  slices in its loop (``_hoisted_select``), and ``stack`` of DTensors
-  gathers its gradient once before splitting it (``_Stacked``);
+  slices in its loop (``_hoisted_select``; its backward gathers the
+  tensor again, as XLA's does from the sharded residual its layer loop
+  keeps: ``_Regathered``), and ``stack`` of DTensors gathers its gradient
+  once before splitting it (``_Stacked``);
+* rwkv6's split of its five mixed streams (``rwkv6.split_streams``) backs
+  up as the reference's five slices do in XLA: five pads and their sum,
+  and, where the streams are sharded on the sequence, the gathers and
+  all-to-alls of the gradients XLA computes with the sequence whole
+  (``_Streams``);
 * GQA's grouping of H query heads as (KV, G), where the mesh splits the
   heads unevenly over the KV groups (qwen2's 12 heads over 2 KV heads on 4
   ranks), keeps each head its own group (``attention.group_heads``), and
@@ -374,8 +385,25 @@ def _log_softmax(x, dim=None, dtype=None, *args, **kwargs):
     # each reduction's partial result all-reduced where it is made, as XLA's
     # partitioner does (a torch release's DTensor may reduce-scatter it onto
     # another dim instead, and the whole loss follows that dim)
+    # (and the backward's partial sum of the gradient over the dim too,
+    # before it is broadcast back over the shards: ``_GradSummed``)
     m = _summed(x.detach().amax(dim=dim, keepdim=True))
-    return x - m - torch.log(_summed(torch.exp(x - m).sum(dim=dim, keepdim=True)))
+    s = _GradSummed.apply(torch.exp(x - m).sum(dim=dim, keepdim=True))
+    return x - m - torch.log(_summed(s))
+
+
+class _GradSummed(torch.autograd.Function):
+    """The identity, whose backward all-reduces a partial-sum gradient where
+    it is made, as XLA's partitioner does (DTensor would broadcast it over
+    the sharded dim first and reduce-scatter the broadcast)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g)
 
 
 def _gather(x, dim, index, *, sparse_grad=False, out=None):
@@ -391,10 +419,51 @@ def _gather(x, dim, index, *, sparse_grad=False, out=None):
         x = x.redistribute(x.device_mesh, [Replicate() if p.is_shard(dim) else p
                                            for p in x.placements])
         return torch.gather(x, dim, index)
-    pos = torch.arange(x.shape[dim], device=x.device)
-    pos = pos.view([-1 if d == dim else 1 for d in range(x.dim())])
-    return torch.where(pos == index, x, torch.zeros((), dtype=x.dtype, device=x.device)) \
-        .sum(dim, keepdim=True)
+    return _Picked.apply(x, dim, index)
+
+
+class _Picked(torch.autograd.Function):
+    """One entry of ``x`` along ``dim``, a dim that the mesh shards (the
+    label's log-probability over a vocab-sharded dim), at ``index`` (of size
+    1 along ``dim``), as GSPMD partitions the gather and its transpose: each
+    rank selects from the positions its shard holds, a partial sum over the
+    mesh dims that shard ``dim``, and the backward scatters the gradient
+    into zeros of its shard, as XLA's transpose of the gather scatters it.
+    (DTensor would place a mask by its own pointwise rules, which differ
+    between torch releases: torch 2.11 gathers the index over the rows and
+    then the backward's whole gradient.)"""
+
+    @staticmethod
+    def forward(ctx, x, dim, index):
+        from torch.distributed.tensor import Partial, Replicate
+        dm = x.device_mesh
+        want = [Replicate() if p.is_shard(dim) else p for p in x.placements]
+        if not _dtensor(index):
+            index = _from_local(index, dm, [Replicate()] * dm.ndim, tuple(index.shape))
+        idx = index.redistribute(dm, want).to_local()
+        n, start = x.shape[dim], 0
+        for i, p in enumerate(x.placements):
+            if p.is_shard(dim):
+                n //= dm.size(i)
+                start += dm.get_local_rank(i) * n
+        local = x.to_local()
+        pos = torch.arange(start, start + n, device=local.device)
+        mask = pos.view([-1 if d == dim else 1 for d in range(x.dim())]) == idx
+        ctx.save_for_backward((idx - start).clamp(0, n - 1), (idx >= start) & (idx < start + n))
+        ctx.like = (dm, tuple(x.placements), tuple(x.shape), want, dim, tuple(local.shape))
+        out = torch.where(mask, local, torch.zeros((), dtype=local.dtype, device=local.device))
+        shape = tuple(1 if d == dim else size for d, size in enumerate(x.shape))
+        return _from_local(out.sum(dim, keepdim=True), dm,
+                           [Partial() if p.is_shard(dim) else p for p in x.placements], shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        at, inside = ctx.saved_tensors
+        dm, placements, shape, want, dim, local_shape = ctx.like
+        gl = g.redistribute(dm, want).to_local()
+        out = torch.zeros(local_shape, dtype=gl.dtype, device=gl.device).scatter_add(
+            dim, at, gl * inside)
+        return _from_local(out, dm, list(placements), shape), None, None
 
 
 def _getitem(table, idx):
@@ -458,10 +527,72 @@ def _hoisted_select(x, idx):
     key = (id(x), dims[0], x._version)
     hit = _GATHERED.get(key)
     if hit is None or hit[0]() is not x:
-        g = x.redistribute(x.device_mesh, [Replicate() if p.is_shard(dims[0]) else p
-                                           for p in x.placements])
+        if torch.is_grad_enabled() and x.requires_grad and not tfm.checkpointed() \
+                and not tfm.recomputing():
+            g = _Regathered.apply(x, dims[0])
+        else:
+            g = x.redistribute(x.device_mesh, [Replicate() if p.is_shard(dims[0]) else p
+                                               for p in x.placements])
         hit = _GATHERED[key] = (weakref.ref(x, lambda _, k=key: _GATHERED.pop(k, None)), g)
     return hit[1][idx].contiguous()
+
+
+class _Regathered(torch.autograd.Function):
+    """``x`` all-gathered on ``dim`` (``_hoisted_select``), whose backward
+    gathers ``x`` again: XLA's layer loop keeps the sharded ``x`` as its
+    residual and its backward all-gathers it for the loop over the chunks,
+    as the forward did (the HLO of the rwkv6-7b fsdp train step: two of the
+    three chunked streams a layer, besides the WKV's output gradient; the
+    trace gathers all three it hoists, k, v and the decay).  The trace's
+    backward reads the chunks the forward kept, so the gather is a record
+    only (``_recorded``: no data moves); the gradient is sliced back to
+    ``x``'s shards, as DTensor's own backward of the gather does.  (Where
+    the unit is checkpointed, its recompute gathers ``x`` again, as XLA's
+    does, and nothing more is recorded.)"""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        from torch.distributed.tensor import Replicate
+        ctx.save_for_backward(x)
+        ctx.dim = dim
+        return x.redistribute(x.device_mesh, [Replicate() if p.is_shard(dim) else p
+                                              for p in x.placements])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        _recorded(x.to_local(), "all-gather", x.device_mesh,
+                  [i for i, p in enumerate(x.placements) if p.is_shard(ctx.dim)])
+        return g.redistribute(x.device_mesh, x.placements), None
+
+
+@torch.library.custom_op("repro_trace::wire", mutates_args=())
+def _wire(t: torch.Tensor, kind: str, group: int, shape: list[int]) -> torch.Tensor:
+    return t.new_empty(shape)
+
+
+@_wire.register_fake
+def _(t, kind, group, shape):
+    return t.new_empty(shape)
+
+
+wire_op = torch.ops.repro_trace.wire
+
+
+def _recorded(t, kind, dm, axes):
+    """A collective of ``kind`` ("all-gather", "all-to-all") of ``t``, a
+    local shard, over each of mesh dims ``axes`` in turn, as a record only:
+    the trace counts its operand and wire bytes (``traceanalysis``), and no
+    data moves; its output, uninitialised, is not to be read.  For what XLA
+    communicates where the trace computes the same values in another
+    layout."""
+    for axis in axes:
+        n = dm.size(axis)
+        shape = list(t.shape)
+        if kind == "all-gather":
+            shape[0] *= n
+        t = wire_op(t.contiguous(), kind, n, shape)
+    return t
 
 
 # (id(x), the dim, x's version) -> (weakref to x, x gathered on that dim)
@@ -495,6 +626,100 @@ class _Stacked(torch.autograd.Function):
             g = g.redistribute(g.device_mesh, [Replicate() if p.is_shard(d) else p
                                                for p in g.placements])
         return (None,) + tuple(g.unbind(d))
+
+
+def _cumsum(x, dim, *, dtype=None, out=None):
+    if out is not None or dtype is not None or not _dtensor(x) or _sharded_on(x, dim) \
+            or not (torch.is_grad_enabled() and x.requires_grad):
+        return NotImplemented
+    return _Cumsum.apply(x, dim)
+
+
+class _Cumsum(torch.autograd.Function):
+    """``cumsum`` of a DTensor along a dim no mesh dim shards (the WKV's
+    decays within a chunk or a shard), as XLA partitions it: each rank sums
+    its own shard, and the backward's reversed sum too.  torch 2.11's
+    DTensor has no rule for the flip of cumsum's backward and runs it
+    replicated, all-gathering the gradient once a chunk (the rwkv6-7b fsdp
+    witness on the card: 64 gathers, 25 MB of wire); torch 2.13's keeps it
+    local, as here."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.like = (x.device_mesh, tuple(x.placements), tuple(x.shape), dim % x.dim())
+        return _from_local(x.to_local().cumsum(dim), x.device_mesh, list(x.placements),
+                           tuple(x.shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        dm, placements, shape, dim = ctx.like
+        if tuple(g.placements) != placements:
+            g = g.redistribute(dm, placements)
+        local = g.to_local().flip(dim).cumsum(dim).flip(dim)
+        return _from_local(local, dm, list(placements), shape), None
+
+
+def _split_streams(mixed):
+    return _Streams.apply(mixed)
+
+
+# the streams (w, k, v, r, g) whose input gradients XLA computes with the
+# sequence whole where the mixed streams are sharded on it: the three the WKV
+# reads whole (r, k, v), and of those the two whose gradients its loop over
+# the chunks leaves on the sequence's shards, which it all-gathers first
+_WHOLE_SEQ_STREAMS = (1, 2, 3)
+_GATHERED_GRADS = (1, 2)
+
+
+class _Streams(torch.autograd.Function):
+    """rwkv6's split of its (B,S,5,D) mixed streams into five (B,S,D), as
+    the reference writes it (``[mixed[:, :, i] for i in range(5)]``) and XLA
+    transposes it: each stream's gradient padded back to (B,S,5,D) and the
+    five pads summed, an ``add`` chain that reads five times what it writes
+    (``traceanalysis.fusion_groups`` duplicates it into each fusion that
+    consumes it, and writes each pad once).  The gradients are summed on
+    each rank's shards, in the placement of ``mixed``; no product, so no
+    FLOP, is added.
+
+    Where ``mixed`` is sharded on the sequence (fsdp), XLA computes the
+    input gradients of the streams the WKV reads whole (r, k, v) with the
+    sequence whole and the embedding dim split (each rank's shard of the
+    FSDP weights): it all-gathers the gradients of k and v along the
+    sequence, pads the three in that layout and all-to-alls the pads onto
+    the sequence's shards (the HLO of the rwkv6-7b fsdp train step).  The
+    trace computes them on the sequence's shards with the gathered weights,
+    the same FLOPs, and records those collectives (``_recorded``: no data
+    moves, and the gradient is the plain split's)."""
+
+    @staticmethod
+    def forward(ctx, mixed):
+        ctx.like = (mixed.device_mesh, tuple(mixed.placements), tuple(mixed.shape)) \
+            if _dtensor(mixed) else None
+        ctx.n = mixed.shape[2]
+        return mixed.unbind(2)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import Shard
+        n = ctx.n
+        seq = []
+        if ctx.like is not None:
+            dm, placements, shape = ctx.like
+            want = [Shard(p.dim - (p.dim > 2)) if p.is_shard() else p for p in placements]
+            grads = [g.redistribute(dm, want).to_local() for g in grads]
+            seq = [i for i, p in enumerate(placements) if p.is_shard(1)]
+        for i in _GATHERED_GRADS if seq else ():
+            _recorded(grads[i], "all-gather", dm, seq)
+        pads = [torch.constant_pad_nd(g.unsqueeze(2), (0, 0, i, n - 1 - i))
+                for i, g in enumerate(grads)]
+        for i in _WHOLE_SEQ_STREAMS if seq else ():
+            _recorded(pads[i], "all-to-all", dm, seq)
+        out = pads[0]
+        for p in pads[1:]:
+            out = out + p
+        if ctx.like is not None:
+            out = _from_local(out, dm, list(placements), shape)
+        return out
 
 
 def _pad(x, pad, mode="constant", value=None):
@@ -942,12 +1167,13 @@ _REWRITES = {
     torch.log_softmax: _log_softmax, torch.Tensor.log_softmax: _log_softmax,
     torch.gather: _gather, torch.Tensor.gather: _gather,
     torch.Tensor.__getitem__: _getitem, F.pad: _pad,
+    torch.cumsum: _cumsum, torch.Tensor.cumsum: _cumsum,
     torch.stack: _stack,
     attn.group_heads: _group_heads, attn.kv_for: _kv_for,
     train_step.microbatches: _microbatches,
     tfm.unembed: _unembed, tfm.from_batch: _from_batch,
     layers.shift: _shift, rglru.block_view: _block_view, rglru.block_unview: _block_unview,
-    rwkv.fold_shards: _fold_shards,
+    rwkv.fold_shards: _fold_shards, rwkv.split_streams: _split_streams,
     rwkv.unfold_shards: _unfold_shards, moe.group_tokens: _group_tokens,
     moe.ungroup: _ungroup,
 }

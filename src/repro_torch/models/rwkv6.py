@@ -189,10 +189,21 @@ def _group_norm(p, o):
     return y * p["ln_scale"].to(y.dtype) + p["ln_bias"].to(y.dtype)
 
 
+def split_streams(mixed):
+    """The five mixed streams (B,S,D) of ``_ddlerp``'s (B,S,5,D).
+
+    While a cell is traced, the trace's forms (``launch/xlaforms.py``) give
+    the split the backward XLA makes of the reference's five slices: five
+    pads of the streams' gradients and their sum."""
+    if has_torch_function((mixed,)):
+        return handle_torch_function(split_streams, (mixed,), mixed)
+    return mixed.unbind(2)
+
+
 def _streams(p, x, xx, n_heads, head_size):
     """r, k, v (B,S,H,hs) and the gate g in the compute dtype; w_log f32."""
     mixed = _ddlerp(p, x, xx)                                 # (B,S,5,D)
-    x_w, x_k, x_v, x_r, x_g = mixed.unbind(2)
+    x_w, x_k, x_v, x_r, x_g = split_streams(mixed)
     r, k, v = proj_heads(x_r, p["wr"]), proj_heads(x_k, p["wk"]), proj_heads(x_v, p["wv"])
     g = F.silu(proj_heads(x_g, p["wg"]))
     w_log = -torch.exp(p["w0"].float() + (x_w @ p["wA"]).float() @ p["wB"].float())

@@ -419,12 +419,19 @@ _SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts, _save_dots_
 
 
 _RECOMPUTE_DEPTH = [0]
+_CHECKPOINT_DEPTH = [0]
 
 
 def recomputing() -> bool:
     """Whether a checkpointed unit is being recomputed in backward now (the
     measurement counts the products run then as remat FLOPs)."""
     return _RECOMPUTE_DEPTH[0] > 0
+
+
+def checkpointed() -> bool:
+    """Whether a checkpointed unit's forward is running now: what it makes
+    is recomputed in backward, not kept."""
+    return _CHECKPOINT_DEPTH[0] > 0
 
 
 def _marked(fn, modes):
@@ -434,7 +441,11 @@ def _marked(fn, modes):
     restore them)."""
     def run(*args):
         if torch._C._current_graph_task_id() == -1:
-            return fn(*args)
+            _CHECKPOINT_DEPTH[0] += 1
+            try:
+                return fn(*args)
+            finally:
+                _CHECKPOINT_DEPTH[0] -= 1
         _RECOMPUTE_DEPTH[0] += 1
         try:
             with contextlib.ExitStack() as stack:

@@ -17,7 +17,9 @@ instead.
   equal the plain shift's bit for bit, for ``k`` = 1 and 3; a pad of the
   sharded sequence is the plain pad; the only collectives of
   the shift are one-peer all-to-alls (``funcol.permute_tensor``'s form),
-  none an all-gather.
+  none an all-gather.  rwkv6's split of its five mixed streams, a cumsum
+  along a dim the mesh does not shard and the loss over vocab-sharded
+  logits give the plain functions' values and gradients there too.
 * A loop of selects along a sharded dim (the chunked WKV's ``rc[:, ci]``)
   all-gathers the dim once, not once a select.
 * The rwkv6-7b corpus witness (fsdp ``train_s``) traces no all-gather of
@@ -44,6 +46,7 @@ from repro_torch.core.searchspace import SearchSpace
 from repro_torch.launch import traceanalysis, xlaforms
 from repro_torch.launch.steps import build_cell
 from repro_torch.models.layers import shift
+from repro_torch.models.transformer import lm_loss
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -99,6 +102,8 @@ from torch.distributed.tensor import DTensor, Shard, Replicate
 from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.launch import xlaforms
 from repro_torch.models.layers import shift
+from repro_torch.models.rwkv6 import split_streams
+from repro_torch.models.transformer import lm_loss
 rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=4)
 
@@ -121,6 +126,9 @@ class Log(TorchDispatchMode):
 rng = np.random.default_rng(0)
 x_full = torch.from_numpy(rng.standard_normal((2, 16, 3)).astype(np.float32))
 g_full = torch.from_numpy(rng.standard_normal((2, 16, 3)).astype(np.float32))
+m_full = torch.from_numpy(rng.standard_normal((2, 16, 5, 3)).astype(np.float32))
+l_full = torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(np.float32))
+lab_full = torch.from_numpy(rng.integers(-1, 8, (2, 16)))
 res = {}
 for name, shape, pl in (("1d", (4,), [Shard(1)]), ("2d", (2, 2), [Replicate(), Shard(1)])):
     dm = DeviceMesh("cpu", torch.arange(4).reshape(shape))
@@ -138,6 +146,26 @@ for name, shape, pl in (("1d", (4,), [Shard(1)]), ("2d", (2, 2), [Replicate(), S
         with xlaforms.XlaForms():
             z = F.pad(x.detach(), (0, 0, k, 0)) * 2.0
         res[f"{name}/{k}/z"] = z.full_tensor().numpy()
+    # rwkv6's split of its mixed streams and a cumsum along an unsharded dim
+    m = DTensor.from_local(m_full, dm, [Replicate()] * len(shape)).redistribute(
+        dm, [Shard(1) if p.is_shard() else p for p in pl]).detach().requires_grad_()
+    c = x.detach().requires_grad_()
+    with xlaforms.XlaForms():
+        streams = split_streams(m)
+        sum(s * float(i + 1) for i, s in enumerate(streams)).sum().backward()
+        (c.cumsum(2) * DTensor.from_local(g_full, dm, [Replicate()] * len(shape))
+         .redistribute(dm, pl)).sum().backward()
+    res[f"{name}/streams"] = np.stack([s.full_tensor().detach().numpy() for s in streams])
+    res[f"{name}/dmixed"] = m.grad.full_tensor().numpy()
+    res[f"{name}/cumsum_dx"] = c.grad.full_tensor().numpy()
+    # the loss over vocab-sharded logits: log_softmax and the label's pick
+    lg = DTensor.from_local(l_full, dm, [Replicate()] * len(shape)).redistribute(
+        dm, [Shard(2) if p.is_shard() else p for p in pl]).detach().requires_grad_()
+    with xlaforms.XlaForms():
+        loss = lm_loss(lg, DTensor.from_local(lab_full, dm, [Replicate()] * len(shape)))
+        loss.backward()
+    res[f"{name}/loss"] = loss.full_tensor().detach().numpy()
+    res[f"{name}/dlogits"] = lg.grad.full_tensor().numpy()
 np.savez(out, **res)
 dist.destroy_process_group()
 """
@@ -189,6 +217,34 @@ def test_the_halo_shift_is_the_plain_shift_on_gloo(gloo, mesh, k):
             [["all_to_all_single", [1, 1]]] * 2
 
 
+@pytest.mark.parametrize("mesh", ["1d", "2d"])
+def test_the_stream_split_cumsum_and_loss_forms_are_plain_autograd_on_gloo(gloo, mesh):
+    """rwkv6's split of its five mixed streams (``xlaforms._Streams``, whose
+    backward records XLA's collectives and moves no data), a cumsum of a
+    sequence-sharded DTensor along its last dim (``xlaforms._Cumsum``), and
+    the loss over vocab-sharded logits (``_log_softmax``, ``_GradSummed``,
+    ``_Picked``; labels -1 masked) give the plain functions' values and
+    gradients."""
+    rng = np.random.default_rng(0)
+    x, g, m, logits = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                       for s in ((2, 16, 3), (2, 16, 3), (2, 16, 5, 3), (2, 16, 8)))
+    labels = torch.from_numpy(rng.integers(-1, 8, (2, 16)))
+    x.requires_grad_(), m.requires_grad_(), logits.requires_grad_()
+    streams = m.unbind(2)
+    sum(s * float(i + 1) for i, s in enumerate(streams)).sum().backward()
+    (x.cumsum(2) * g).sum().backward()
+    loss = lm_loss(logits, labels)
+    loss.backward()
+    for r in gloo:
+        assert np.array_equal(r[f"{mesh}/streams"], torch.stack(streams).detach().numpy())
+        assert np.array_equal(r[f"{mesh}/dmixed"], m.grad.numpy())
+        np.testing.assert_allclose(r[f"{mesh}/cumsum_dx"], x.grad.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(r[f"{mesh}/loss"], loss.detach().numpy(), rtol=1e-6)
+        np.testing.assert_allclose(r[f"{mesh}/dlogits"], logits.grad.numpy(), rtol=1e-5,
+                                   atol=1e-7)
+
+
 def test_the_rwkv6_witness_shifts_by_collective_permutes():
     """The corpus's rwkv6-7b A1 witness: every shift (time-mix and
     channel-mix, 4 layers) is one collective-permute forward and one
@@ -199,8 +255,9 @@ def test_the_rwkv6_witness_shifts_by_collective_permutes():
     space = SearchSpace(bench_archs(["rwkv6-7b"]), BENCH_SHAPES)
     cfg, shape, policy, mk = space.to_run(space.normalize(p))
     trace = build_cell(cfg, shape, policy, bench_meshes()[mk]).trace("cpu")
-    recs = [r for r in trace.records
-            if r["op"] != "prim.device.default" and "wait_tensor" not in r["op"]]
+    # (the collectives that xlaforms._recorded records move no data)
+    recs = [r for r in trace.records if r["op"] != "prim.device.default"
+            and "wait_tensor" not in r["op"] and not r["op"].startswith("repro_trace.wire")]
     assert len([r for r in recs if r.get("coll") == "collective-permute"]) == 16
     # a rank's (B, S, D) activation (8 rows of 64 steps of 256) is gathered
     # only for the products that take its whole sequence (the unembedding

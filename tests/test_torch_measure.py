@@ -6,8 +6,9 @@
   except the listed differences (``parity.KIND_DIFFERENCES``, both kind
   sets and the deciding counter's values), so a witness shows its entry's
   kind and a control does not, as the reference's corpus replay holds them.
-  A witness whose kinds agree while a deciding counter stays far from the
-  reference's keeps both values as ``parity.COUNTER_GAPS`` records them.
+  A witness's deciding counters keep both values as
+  ``parity.WITNESS_COUNTERS`` records them, each within
+  ``parity.COUNTER_BOUND`` of the reference's or listed with its cause.
   The reference's kinds and ratio are also those ``parity.REFERENCE`` keeps
   for the card, and only the ops ``parity.REPLICATED_OPS`` admits at a
   point's class may run replicated.
@@ -164,12 +165,13 @@ def test_corpus_point_verdict_and_useful_flops_match_reference(measured, i):
         assert (tuple(port["kinds"]), tuple(ref["kinds"])) == (kinds_port, kinds_ref)
         assert (f"{port['counters'][counter]:.4g}", f"{ref['counters'][counter]:.4g}") == \
             (f"{v_port:.4g}", f"{v_ref:.4g}")
-    # a witness whose kinds agree on a counter far from the reference's keeps
-    # both recorded values (4 digits)
-    gaps = parity.COUNTER_GAPS.get(key, ({},))[0]
-    for counter, (v_port, v_ref) in gaps.items():
-        assert (f"{port['counters'][counter]:.4g}", f"{ref['counters'][counter]:.4g}") == \
-            (f"{v_port:.4g}", f"{v_ref:.4g}"), counter
+    # a witness's deciding counters keep both recorded values (4 digits), each
+    # within the bound of the reference's or listed with its cause
+    held, cause = parity.WITNESS_COUNTERS.get(key, ({}, None))
+    for counter, (v_port, v_ref) in held.items():
+        got_v, ref_v = port["counters"][counter], ref["counters"][counter]
+        assert (f"{got_v:.4g}", f"{ref_v:.4g}") == (f"{v_port:.4g}", f"{v_ref:.4g}"), counter
+        assert abs(got_v / ref_v - 1) <= parity.COUNTER_BOUND or cause, (counter, got_v, ref_v)
     assert tuple(port["kinds"]) == parity.expected_kinds(p, role)
     assert parity.verdict_ok(kind, role, port["kinds"])
     assert parity.useful_ok(parity.point_key(p), got, want), (got, want)
