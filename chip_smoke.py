@@ -95,11 +95,15 @@ Phases (any failure exits non-zero and prints no result line):
               ``POINT_KIND_DIFFERENCES``, ``REFERENCE_ABORTS``) as the
               corpus points are.
 3d''. measure pairs — ``chip_smoke.py --measure-pair INDEX``, a process a
-              point, from the kernels phases' end to the search phase's end
-              (collected before the serving and training phases): the pairs file's points
+              point, from the kernels phases' end (collected before the
+              serving and training phases where it has ended, else after
+              the last phase: rwkv6-7b's train step runs on beside them,
+              niced): the pairs file's points
               ``parity.SMOKE_PAIRS`` (19: qwen2-1.5b decode_s under tp
               against an unsharded cache; 29: rwkv6-7b train_s under dp on
-              the multi mesh in 4 microbatches) measured by the port's
+              the multi mesh in 4 microbatches; 215: mixtral-8x7b train_s
+              under dp on the single mesh in 16 microbatches of 2 rows,
+              its kinds and useful-FLOP ratio printed) measured by the port's
               engine at a low priority, each point's kinds today's
               reference's or a listed difference.  The measure phase also
               prints the rwkv6-7b A1 witness's bytes a device by phase
@@ -3069,9 +3073,12 @@ def measure_frontends_main():
 
 def measure_pair_main(index):
     """``chip_smoke.py --measure-pair INDEX``, in a process of its own from
-    the build to the search phase's end, at a low priority (one a point of
+    the kernels phases' end, at a low priority (one a point of
     ``parity.SMOKE_PAIRS``: a decode step against an unsharded cache under
-    tp, and a microbatched rwkv6-7b train step under dp on the multi mesh):
+    tp, a microbatched rwkv6-7b train step under dp on the multi mesh, and
+    mixtral-8x7b's train step in 16 microbatches of 2 rows under dp, its
+    local attention's chunk view and MoE's groups on a sequence that
+    carries the batch's ranks):
     the point of ``benchmarks/results/bench_fidelity_pairs.json`` measured
     by the port's engine on fake cuda tensors (without the structural
     dedup, so without the global trace that only fingerprints a point), its
@@ -3087,8 +3094,10 @@ def measure_pair_main(index):
     from repro_torch.core.engine import Engine
     from repro_torch.core.searchspace import SearchSpace
 
-    archs, restrict, rows = parity.pair_points(
-        ROOT / "benchmarks" / "results" / "bench_fidelity_pairs.json")
+    pairs_file = ROOT / "benchmarks" / "results" / "bench_fidelity_pairs.json"
+    archs, restrict, rows = next(
+        found for found in (parity.pair_points(pairs_file, moe) for moe in (False, True))
+        if any(i == index for i, _, _ in found[2]))
     p = next(p for i, p, _ in rows if i == index)
     eng = Engine(SearchSpace(bench_archs(archs), BENCH_SHAPES, restrict=restrict),
                  bench_meshes(), persistent_cache=False, struct_dedup=False, device="cuda")
@@ -3103,7 +3112,8 @@ def measure_pair_main(index):
     listed = parity.PAIR_KIND_DIFFERENCES.get(index)
     want = ref if listed is None else list(listed[0])
     print(f"measure pair {index} {parity.point_key(p)} x{p['n_microbatch']}: kinds {kinds} "
-          f"(reference {ref}, expected {want}), {seconds:.1f} s; counters "
+          f"(reference {ref}, expected {want}), useful-FLOP ratio "
+          f"{c['perf.useful_flops_ratio']:.5f}, {seconds:.1f} s; counters "
           f"{json.dumps(c)}; ops DTensor ran replicated {json.dumps(eng.replicated_ops)}",
           flush=True)
     if kinds != want:
@@ -3588,17 +3598,20 @@ def main():
           f"structural hits), warm {searched['warm_s']:.1f} s ({searched['warm']['n_compiles']} "
           f"mesh traces) (host)", flush=True)
 
-    # collected before the timed serving and training phases, which then
-    # run with no process of this script's beside them
+    # collected before the timed serving and training phases where they have
+    # ended; one still tracing (rwkv6-7b's microbatched train step, the
+    # script's longest process) runs on beside them, niced, and is collected
+    # after the last phase, so that no phase waits for it
     phase("measure pairs")
     t_phase = time.perf_counter()
+    late = [proc for proc in pairs if proc.poll() is None]
     measured_pairs = [subprocess_phase_finish(proc, "measure pairs", "measure_pair")
-                      for proc in pairs]
+                      for proc in pairs if proc not in late]
     phase_seconds["measure pairs (waited)"] = time.perf_counter() - t_phase
     print(f"measure pairs: {len(measured_pairs)} pairs points, "
           f"{json.dumps({r['index']: round(r['seconds'], 1) for r in measured_pairs})} "
           f"seconds each (a process each, from the kernels phases' end to the search "
-          f"phase's end)",
+          f"phase's end); {len(late)} still tracing beside the phases that follow",
           flush=True)
 
     phase("serve")
@@ -3726,6 +3739,16 @@ def main():
     t_phase = time.perf_counter()
     examples_phase()
     phase_seconds["examples"] = time.perf_counter() - t_phase
+    if late:
+        phase("measure pairs (late)")
+        t_phase = time.perf_counter()
+        measured_late = [subprocess_phase_finish(proc, "measure pairs", "measure_pair")
+                         for proc in late]
+        phase_seconds["measure pairs (late, waited)"] = time.perf_counter() - t_phase
+        print(f"measure pairs: "
+              f"{json.dumps({r['index']: round(r['seconds'], 1) for r in measured_late})} "
+              f"seconds each, beside the serving, training, launch and examples phases",
+              flush=True)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_seconds.items()})}",
           flush=True)
 

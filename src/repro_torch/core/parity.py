@@ -77,16 +77,6 @@ REPLICATED_OPS = {
          "more than there are groups, and DTensor cannot split a mesh axis between "
          "the group and the token dims as XLA tiles them; the view runs replicated "
          "(the 16 lanes' activations, 8 KB, are gathered)"),
-        ({"arch": _MOE, "kind": ("train",), "microbatched": (True,)},
-         "MoE train microbatches where a view of the sequence or of the groups is not "
-         "yet a form: with 1-2 rows a microbatch (16 or 32 microbatches of the bench's "
-         "32 rows) the sequence carries the batch's ranks (xlaforms._microbatches), and "
-         "the blocked or local attention's view of it as 64-step blocks would split one "
-         "mesh dim's shards between the block and step dims (pod x data onto 4 blocks), "
-         "which DTensor cannot place; under fsdp the groups come back with the "
-         "embedding dim sharded and the groups strided-sharded, which xlaforms._ungroup "
-         "does not take.  The views run replicated (the pairs file's points 103-104 and "
-         "215-216 gain A3: attention computed whole on each rank)"),
         ({"arch": ("recurrentgemma-2b",), "kind": ("train",), "preset": ("fsdp",)},
          "the backward of the RG-LRU's associative scan: DTensor places a level's "
          "gradient sharded on the sequence over the model axis (the forward shards the "
@@ -202,9 +192,6 @@ _TWO_ROW = ("a microbatch of 1-2 rows on 32 dp ranks (MICROBATCH_COUNTERS): XLA 
             "on half a mesh axis and splits the weights' input dim over data in its loop; "
             "the port's microbatch runs whole on every rank (9-10x XLA's FLOPs; its only "
             "collectives of size are the ZeRO-1 update's gathers)")
-_MOE_MICRO = ("MoE microbatches of 1-2 rows (REPLICATED_OPS: the blocked or local "
-              "attention's view of a sequence that carries the batch's ranks is not yet a "
-              "form): attention runs whole on each rank")
 PAIR_KIND_DIFFERENCES = {
     50: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.085497, 0.34784)},
          "rwkv6-7b-bench train_s under ep on the single mesh, 16 microbatches of 2 rows, "
@@ -216,16 +203,6 @@ PAIR_KIND_DIFFERENCES = {
           "as 65"),
     138: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.42982, 21.546)},
           "as 65, 32 microbatches of 1 row"),
-    103: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.29934, 0.69603)},
-          "mixtral-8x7b-bench train_s under ep on the multi mesh, 16 microbatches: "
-          + _MOE_MICRO),
-    104: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.31712, 0.80035)},
-          "as 103, 32 microbatches"),
-    215: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.2204, 0.81391)},
-          "mixtral-8x7b-bench train_s under dp on the single mesh, 16 microbatches: "
-          + _MOE_MICRO),
-    216: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.2204, 0.81391)},
-          "as 215, 32 microbatches"),
     222: (("A1", "A2"), ("A1",), {"diag.collective_blowup": (5.4797, 3.532)},
           "mixtral-8x7b-bench train_s under tp on the single mesh, 8 microbatches, one row "
           "a rank: XLA writes the replica groups of the activations' partial sums in its "
@@ -233,16 +210,16 @@ PAIR_KIND_DIFFERENCES = {
           "of 2 (hloanalysis._GROUPS_RE); the trace counts their true group of 4 (counting "
           "them as 2 would take pair 10, whose trace lacks XLA's gathers of the 2-D "
           "sharded activations, off the reference's kinds)"),
-    223: ((), ("A1",), {"perf.roofline_efficiency": (0.25627, 0.23857)},
+    223: ((), ("A1",), {"perf.roofline_efficiency": (0.25639, 0.23857)},
           "mixtral-8x7b-bench train_s under ep on the single mesh, 8 microbatches, remat "
           "dots: XLA's step is memory-bound, 3 % under A1's 0.25, the trace's bound by "
-          "its wire (310.0 MB against 289.5) because its bytes are 0.829x XLA's (4522.5 MB "
+          "its wire (310.0 MB against 289.5) because its bytes are 0.834x XLA's (4550.7 MB "
           "against 5454.6). XLA runs 1314.4 MB in its layer loop's forward body, 2873.9 in "
           "its backward body (the recompute in it), 966.4 in its microbatch body (the "
           "embedding, the loss and the unembedding, forward and backward) and 299.9 "
-          "outside; the trace 1077.1 in the forward's loops, 2878.2 in the recompute and "
+          "outside; the trace 1090.9 in the forward's loops, 2892.6 in the recompute and "
           "the backward with the loss, 567.2 outside the loops in the forward: the layer "
-          "loop's forward is 0.82x XLA's, and the rest 0.83x"),
+          "loop's forward is 0.83x XLA's, and the rest 0.84x"),
     236: (("A1", "A3"), ("A1",), {"perf.useful_flops_ratio": (0.47073, 1.2301)},
           "mixtral-8x7b-bench prefill_s under dp on the single mesh: 8 rows on the 4 data "
           "ranks; GSPMD carries the MoE groups' sharding over data and model (32 groups "
@@ -253,13 +230,17 @@ PAIR_KIND_DIFFERENCES = {
 
 # The pairs file's points that chip_smoke.py --measure-pair traces on the
 # card, by index -> today's reference's kinds (the fresh run of
-# tests/reference_counters.py --pairs; tests/test_torch_search.py holds
-# them to it): a decode step against an unsharded cache under tp (19) and
-# rwkv6-7b's microbatched train step under dp on the multi mesh (29: 4
-# microbatches, remat dots).  Pair 126 (8 microbatches) gave these kinds on
-# the card too, in 746-912 s of the host's time beside the script's other
-# phases: it is held on the CPU only (tests/test_torch_search.py).
-SMOKE_PAIRS = {19: ("A1",), 29: ("A1", "A2", "A3")}
+# tests/reference_counters.py --pairs [--moe]; tests/test_torch_search.py
+# holds the non-MoE ones to it, tests/test_torch_moe_micro.py 215): a decode
+# step against an unsharded cache under tp (19), rwkv6-7b's microbatched
+# train step under dp on the multi mesh (29: 4 microbatches, remat dots),
+# and mixtral-8x7b's under dp on the single mesh in 16 microbatches of 2
+# rows (215: local attention's chunk view, xlaforms._chunk_view, on a
+# sequence that carries the batch's ranks).  Pair 126 (8 microbatches) gave
+# these kinds on the card too, in 746-912 s of the host's time beside the
+# script's other phases: it is held on the CPU only
+# (tests/test_torch_search.py).
+SMOKE_PAIRS = {19: ("A1",), 29: ("A1", "A2", "A3"), 215: ("A1", "A2")}
 
 # The deciding counters of the corpus's witnesses whose kinds agree: corpus_key
 # -> ({counter: (port value (CPU trace, torch 2.13), reference value (CPU
@@ -377,12 +358,6 @@ def grid_key(p: dict) -> tuple:
 _VIT_TRAIN = ("memory-bound step, the FLOPs XLA's to 4 digits: the trace's layer loop "
               "forward counts {fwd}; its backward and what is outside the loops fall "
               "short: {bwd}")
-_DECODE_MULTI = ("memory-bound decode step on the multi mesh: XLA's layer loop reads each "
-                 "layer's cache slice through a transposing copy at f32 (the keys for the "
-                 "scores) and rewrites the bf16 caches at f32, bytes the trace's fusion "
-                 "groups fall short of, so the port's roofline efficiency sits just above "
-                 "A1's 0.25")
-
 # grid_key -> (the reference's kinds, its perf.useful_flops_ratio): the
 # reference's measure_cell (CPU, 32 host devices) at each frontend arch's
 # bench points (baseline point: remat none) and the compressed int8 points
@@ -442,7 +417,15 @@ POINT_REFERENCE = {
 }
 
 # grid_key -> (port kinds, reference kinds, counter, port value (CPU trace,
-# torch 2.13), reference value (CPU compile), cause)
+# torch 2.13), reference value (CPU compile), cause).  (internvl2-1b decode_s
+# under tp and ep on the multi mesh once lacked A1, roofline efficiency
+# 0.2652 against 0.2285: the reference's analyzer counts a layer's slice of
+# a stacked weight or cache twice, once more for the loop index its fusion
+# reads, which weighs most where wq and wo are whole on every rank (14 heads
+# on 4 model ranks), and XLA's CPU module fuses a single row's product with
+# its weight's convert; the trace counted each slice once and gathered a
+# decode step's scores for a softmax over the whole cache.  Now
+# traceanalysis._copies_for_product and xlaforms._softmax: 0.2331.)
 POINT_KIND_DIFFERENCES = {
     ('internvl2-1b', 'train_s', 'dp', 'single', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.2726, 0.2342, _VIT_TRAIN.format(
         fwd="682.8 MB against 681.9 in its forward body", bwd="757.6 MB in the backward and 291.9 "
@@ -452,8 +435,6 @@ POINT_KIND_DIFFERENCES = {
         fwd="702.2 MB against 663.1 in its forward body", bwd="866.5 MB in the backward and 169.5 "
         "outside in the forward, against 802.2 in XLA's backward body and 502.7 outside the "
         "loops (0.883x XLA's 1968.0 MB)")),
-    ('internvl2-1b', 'decode_s', 'tp', 'multi', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.2652, 0.2285, _DECODE_MULTI),
-    ('internvl2-1b', 'decode_s', 'ep', 'multi', 'none', 'none'): ((), ('A1',), "perf.roofline_efficiency", 0.2652, 0.2285, _DECODE_MULTI),
 }
 
 # The compressed train points where the reference's XLA aborts the process (a

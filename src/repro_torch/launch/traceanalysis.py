@@ -667,7 +667,11 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
     dims leading, contracted dims last on the left, ``_dot_layout_ok``), or
     is a slice of an argument (a layer's weight out of the stacked params:
     the layer loop's dynamic-slice), reads it through a copy (read and
-    written at f32) unless a fusion writes it; an update of a slice of an
+    written at f32) unless a fusion writes it, a slice of an argument or of
+    a cache the loop carries read twice (the reference's analyzer counts
+    the dynamic-slice again for the loop index), and a single row's product
+    with no batch dims fuses its weight's copy (written nowhere,
+    ``_copies_for_product``); an update of a slice of an
     argument (a cache's layer, carried by the layer loop) rewrites the
     whole argument, which the loop also copies once; and the ops torch runs
     as one kernel but XLA as several (``_PASSES``) read their inputs again.
@@ -772,7 +776,7 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
 
     copy_roots = {x for gs in roots.values() for x in gs if isinstance(x, tuple)}
     out, copied = [], set()
-    carried, copied_stacks = {i: i for i in args}, set()
+    carried, copied_stacks, fused_in = {i: i for i in args}, set(), set()
     for k, (r, role) in enumerate(zip(records, roles)):
         if role in ("none", "pass", "collective") or k in phantoms \
                 or (role in fusible and not written[k]):
@@ -782,13 +786,13 @@ def fusion_groups(records, out_ids=(), arg_ids=()) -> list:
                 a, d = r["reads"][n], r["in"][n]
                 members, reads = fused(k, [(a, d)], producer.get(c(a[0])))
                 out.append(("layout", sorted(set(members)), _read_bytes(reads), _f32(a, d[1])[1]))
-            out += _copies_for_product(k, r, records, c, producer, roles, args, copied,
-                                       {v[3] for v in stacked.values()})
+            out += _copies_for_product(k, r, records, c, producer, roles, carried, copied,
+                                       {v[3] for v in stacked.values()}, fused_in)
             prod = r["kind"] == "product"
             targets = set(r["targets"])
             reads = []
             for n, (a, d) in enumerate(zip(r["reads"], r["in"])):
-                if n in targets:
+                if n in targets or (k, n) in fused_in:
                     continue
                 x = (c(a[0]),) + a[1:]
                 x = x if prod else _f32(x, d[1])
@@ -937,28 +941,48 @@ def _fused_on_all_paths(cons, ids, records, roles, written, c) -> bool:
     return True
 
 
-def _copies_for_product(k, r, records, c, producer, roles, args, copied, residuals) -> list:
+def _copies_for_product(k, r, records, c, producer, roles, carried, copied, residuals,
+                        fused_in) -> list:
     """The copies XLA's CPU module makes of product ``k``'s operands (see
     ``fusion_groups``): [("copy", [k], bytes read, bytes written)].  The
     backward reads a residual through the dynamic-slice of its stack, which
-    writes the layout the product takes."""
+    writes the layout the product takes.  A copy of a layer's slice of an
+    argument (a weight out of the stacked params, a cache's layer, carried
+    by the loop) reads the slice twice: the reference's analyzer counts a
+    fusion's dynamic-slice once for the operand it slices and once more for
+    the loop index it reads (``hloanalysis._fusion_io_bytes``).  Where the
+    product has no batch dims and the other operand is a single row (a
+    weight against a decode step's one token a rank), XLA fuses the product
+    with the copy's convert (a matrix-vector fusion): the copy is not
+    written, and the product does not read it again ((k, the operand's
+    index) is added to ``fused_in``)."""
     if "eqn" not in r:
         return []
     out = []
+    lhs, eo = r["eqn"].split("->")
+    letters = lhs.split(",")
+    size = dict(zip(letters[0], r["in"][0][0]))
+    size.update(zip(letters[1], r["in"][1][0]))
+    batched = any(size[ch] > 1 for ch in letters[0] if ch in letters[1] and ch in eo)
     for n, (a, d, si) in enumerate(zip(r["reads"][:2], r["in"][:2], r["sreads"])):
         i = c(a[0])
         p = producer.get(i)
         if p is not None and roles[p] in ("fuse", "reduce") \
                 or (si in residuals and r["phase"] != "F"):
             continue                     # the fusion writes the layout the product takes
-        need = not _dot_layout_ok(r["eqn"], n, a[3]) or (p is None and i in args and a[1] < a[2])
+        sliced = a[1] < a[2] and i in carried
+        need = not _dot_layout_ok(r["eqn"], n, a[3]) or (p is None and sliced)
         if p is not None and "eqn" in records[p]:
             need |= not _dot_layout_ok(records[p]["eqn"], 2, None)
         key = (i, a[3], r["eqn"], n)
         if need and key not in copied:
             copied.add(key)
             nb = _f32(a, d[1])[1]
-            out.append(("copy", [k], nb, nb))
+            gemv = not batched and math.prod(size[ch] for ch in letters[1 - n]
+                                             if ch not in letters[n]) == 1
+            if gemv:
+                fused_in.add((k, n))
+            out.append(("copy", [k], nb * (2 if sliced else 1), 0 if gemv else nb))
     return out
 
 

@@ -26,7 +26,8 @@ into the forms the reference's program has:
 * ``log_softmax`` of a DTensor sharded along the reduced dim becomes
   ``x - max - log(sum(exp(x - max)))``, whose reductions DTensor partitions
   (partial results, all-reduced where they are made, the backward's too:
-  ``_GradSummed``);
+  ``_GradSummed``), and ``softmax`` there ``exp(x - max) / sum(...)`` (a
+  decode step's scores over a sequence-sharded cache);
 * ``gather`` of one element along a sharded dim (the label's log-prob)
   becomes a sum over that dim masked on each rank's own shard, its
   backward a scatter of the gradient into the shard (``_Picked``);
@@ -65,6 +66,11 @@ into the forms the reference's program has:
   sharded on the heads' mesh axes, and attends sharded on it; against a
   replicated cache it keeps its heads sharded and each rank reads its own
   heads' KV heads (``_kv_for``);
+* local attention's view of a sharded sequence as chunks
+  (``attention.chunk_view``) keeps each rank's positions as a block of
+  queries, each block's window of keys and values gathered over the mesh
+  dims within a chunk and the chunk before by a halo exchange
+  (``_chunk_view``, ``_chunk_unview``);
 * the train step's split of a batch into microbatches
   (``train_step.microbatches``) keeps each microbatch sharded as XLA's
   loop does, from one redistribution of the batch (``_microbatches``),
@@ -390,6 +396,20 @@ def _log_softmax(x, dim=None, dtype=None, *args, **kwargs):
     m = _summed(x.detach().amax(dim=dim, keepdim=True))
     s = _GradSummed.apply(torch.exp(x - m).sum(dim=dim, keepdim=True))
     return x - m - torch.log(_summed(s))
+
+
+def _softmax(x, dim=None, dtype=None, *args, **kwargs):
+    if dim is None or args or kwargs or not _dtensor(x) or not _sharded_on(x, dim):
+        return NotImplemented
+    if dtype is not None:
+        x = x.to(dtype)
+    # each rank's exponentials of its own shard, the max and the sum over
+    # the dim all-reduced where they are made, as XLA's partitioner reduces
+    # (a decode step's scores over a cache whose sequence is sharded: DTensor
+    # would gather the scores and compute the softmax whole on every rank)
+    m = _summed(x.detach().amax(dim=dim, keepdim=True))
+    e = torch.exp(x - m)
+    return e / _summed(_GradSummed.apply(e.sum(dim=dim, keepdim=True)))
 
 
 class _GradSummed(torch.autograd.Function):
@@ -1131,27 +1151,137 @@ def _ungroup(y, x):
     """MoE's groups (G, Tg, D), G sharded over mesh dims, back to the
     (B, S, D) layout of ``x``, whose rows and sequence are sharded (the
     rows' mesh dims first) with whole groups in each rank's sequence block:
-    G gathered on the mesh dims that shard it but not ``x`` (as XLA
-    reshards there), then each rank's groups are its own rows' sequence
-    block (rank (d, m) holds the groups of row block d and sequence block
-    m) and the view is local, as XLA's reshape is.  DTensor cannot split
-    G's shards over two dims, and would run the view replicated."""
+    G resharded onto the mesh dims that shard ``x`` (gathered on the others,
+    and moved off the embedding dim where the groups come back with it
+    sharded there, fsdp's layout), then each rank's groups are
+    its own rows' sequence block (rank (d, m) holds the groups of row block
+    d and sequence block m) and the view is local, as XLA's reshape is.  An
+    embedding dim sharded on a mesh dim that shards neither ``x``'s rows nor
+    its sequence stays sharded.  DTensor cannot split G's shards over two
+    dims, and would run the view replicated.  (Where the embedding is
+    sharded and G's shards fall on whole rows, or on the steps of one row,
+    DTensor's own view places them.)"""
     from torch.distributed.tensor import Replicate, Shard
     if not (_dtensor(y) and _dtensor(x)) or x.dim() != 3 or not _sharded_on(y, 0):
         return NotImplemented
     dims = [p.dim for p in x.placements if p.is_shard()]
     lb, ls, _ = x.to_local().shape
     if dims != sorted(dims) or any(d > 1 for d in dims) or ls % y.shape[1] \
-            or any(p.is_shard() and p.dim > 0 for p in y.placements):
+            or any(p.is_shard(1) or p.is_partial() for p in y.placements):
         return NotImplemented
-    want = [Shard(0) if p.is_shard() else Replicate() for p in x.placements]
-    if any(w.is_shard() and not p.is_shard(0) for w, p in zip(want, y.placements)):
+    want = [Shard(0) if p.is_shard() else q if q.is_shard(2) else Replicate()
+            for p, q in zip(x.placements, y.placements)]
+    if any(q.is_shard(2) for q in y.placements):
+        ways = math.prod(n for n, q in zip(y.device_mesh.shape, y.placements) if q.is_shard(0))
+        if x.shape[0] % ways == 0 or x.shape[0] == 1:
+            return NotImplemented        # DTensor's view puts G's shards on the rows or steps
+    elif any(w.is_shard() and not q.is_shard(0) for w, q in zip(want, y.placements)):
         return NotImplemented
     if list(y.placements) != want:
         y = y.redistribute(y.device_mesh, want)
     local = y.to_local()
     return _from_local(local.reshape(lb, ls, local.shape[-1]), x.device_mesh,
-                       list(x.placements), tuple(x.shape))
+                       [p if p.is_shard() else w for p, w in zip(x.placements, want)],
+                       tuple(x.shape))
+
+
+def _chunk_view(q, k, v, positions_q, positions_kv, C):
+    """``attention.chunk_view`` where the sequence of q is sharded (a
+    microbatch of 1-2 rows whose sequence carries the batch's ranks, or a
+    sequence-sharded one), and that of k and v on those mesh dims or on
+    none (the keys' constraint gathers them): each rank's L positions stay
+    in place, as XLA's reshape keeps them.  The queries are viewed as blocks of
+    min(L, C), the block dim sharded as the sequence was (where a chunk
+    spans several ranks, each holds its part of it: DTensor cannot split
+    one mesh dim's shards between the chunk and the step dims).  Each
+    block's window, the chunk before its chunk and the chunk, is cut from
+    the keys and values gathered over the inner mesh dims that split a chunk
+    (their gradient reduce-scattered back), and the chunk before the first
+    that a rank's span holds comes from the previous rank of the outer mesh
+    dim that still splits them by a halo exchange (``_Halo``), as GSPMD
+    exchanges it.  Each rank's score product is then its L queries against
+    2C keys, XLA's per-device FLOPs, where DTensor would run the views
+    replicated and attention whole on every rank.  (The positions are plain
+    tensors, replicated: the windows' positions are cut from them for every
+    block.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not (_dtensor(q) and _dtensor(k) and _dtensor(v)) or _dtensor(positions_q) \
+            or _dtensor(positions_kv):
+        return NotImplemented
+    dm = q.device_mesh
+    axes = [i for i, p in enumerate(q.placements) if p.is_shard(1)]
+    if not axes or any(type(p) is not Shard and p.is_shard()
+                       for t in (q, k, v) for p in t.placements) \
+            or any(p.is_shard(1) and i not in axes or p.is_partial()
+                   for t in (k, v) for i, p in enumerate(t.placements)):
+        return NotImplemented
+    B, S = q.shape[:2]
+    ways = math.prod(dm.size(i) for i in axes)
+    L = S // ways
+    Lb = min(L, C)
+    if S % ways or (L % C if L >= C else C % L):
+        return NotImplemented
+    inner, g = [], 1
+    for i in reversed(axes):
+        if g * L >= C:
+            break
+        inner.insert(0, i)
+        g *= dm.size(i)
+    at = 0
+    for i in axes:
+        at = at * dm.size(i) + dm.get_local_rank(i)
+    starts = [(at * L + b * Lb) // C * C for b in range(L // Lb)]
+
+    def shifted(placements):
+        return [Shard(p.dim + 1) if p.is_shard() and p.dim > 1 else p for p in placements]
+
+    def windows(x):
+        # each rank's windows are its own blocks': the block dim sharded as
+        # the queries', whether x was sharded on those mesh dims or whole
+        pl = [Shard(1) if i in axes else p for i, p in enumerate(shifted(x.placements))]
+        gathered = [Replicate() if i in inner else p for i, p in enumerate(x.placements)]
+        split = [i for i, p in enumerate(gathered) if p.is_shard(1)]
+        span_len = S // math.prod(dm.size(i) for i in split)
+        if len(split) > 1 or span_len % C:
+            return None
+        x = x.redistribute(dm, gathered)
+        span = x.to_local(grad_placements=[Partial() if i in axes and p.is_replicate() else p
+                                           for i, p in enumerate(x.placements)])
+        if split:
+            prev = _Halo.apply(span, 1, C, dm, split[0]).narrow(1, 0, C)
+            first = dm.get_local_rank(split[0]) * span_len
+        else:
+            prev, first = torch.zeros_like(span.narrow(1, 0, C)), 0
+        ext = torch.cat([prev, span], 1)
+        local = torch.stack([ext.narrow(1, s - first, 2 * C) for s in starts], 1)
+        return _from_local(local, dm, pl, (B, S // Lb, 2 * C) + tuple(x.shape[2:]))
+
+    kk, vv = windows(k), windows(v)
+    if kk is None or vv is None:
+        return NotImplemented
+    ql = q.to_local()
+    qc = _from_local(ql.reshape((ql.shape[0], L // Lb, Lb) + tuple(ql.shape[2:])), dm,
+                     shifted(q.placements), (B, S // Lb, Lb) + tuple(q.shape[2:]))
+    pk = F.pad(positions_kv, (C, 0), value=2**30)
+    cut = (torch.arange(S // Lb, device=pk.device) * Lb // C * C)[:, None] \
+        + torch.arange(2 * C, device=pk.device)
+    return qc, kk, vv, positions_q.reshape(B, S // Lb, Lb), pk[:, cut]
+
+
+def _chunk_unview(y):
+    """``attention.chunk_unview`` of a DTensor whose step dim is whole on
+    every rank: each rank's blocks merged in place (the blocks' dim sharded
+    in mesh order, as ``_chunk_view`` lays them out)."""
+    from torch.distributed.tensor import Shard
+    if not _dtensor(y) or _sharded_on(y, 2) \
+            or any(p.is_partial() or (p.is_shard() and type(p) is not Shard)
+                   for p in y.placements):
+        return NotImplemented
+    local = y.to_local()
+    pl = [Shard(p.dim - 1) if p.is_shard() and p.dim > 2 else p for p in y.placements]
+    return _from_local(local.reshape((local.shape[0], local.shape[1] * local.shape[2])
+                                     + tuple(local.shape[3:])), y.device_mesh, pl,
+                       (y.shape[0], y.shape[1] * y.shape[2]) + tuple(y.shape[3:]))
 
 
 def _from_local(local, dm, placements, shape):
@@ -1165,6 +1295,7 @@ _REWRITES = {
     torch.matmul: _matmul, torch.Tensor.matmul: _matmul, torch.Tensor.__matmul__: _matmul,
     torch.einsum: _einsum,
     torch.log_softmax: _log_softmax, torch.Tensor.log_softmax: _log_softmax,
+    torch.softmax: _softmax, torch.Tensor.softmax: _softmax,
     torch.gather: _gather, torch.Tensor.gather: _gather,
     torch.Tensor.__getitem__: _getitem, F.pad: _pad,
     torch.cumsum: _cumsum, torch.Tensor.cumsum: _cumsum,
@@ -1172,7 +1303,8 @@ _REWRITES = {
     attn.group_heads: _group_heads, attn.kv_for: _kv_for,
     train_step.microbatches: _microbatches,
     tfm.unembed: _unembed, tfm.from_batch: _from_batch,
-    layers.shift: _shift, rglru.block_view: _block_view, rglru.block_unview: _block_unview,
+    layers.shift: _shift, attn.chunk_view: _chunk_view, attn.chunk_unview: _chunk_unview,
+    rglru.block_view: _block_view, rglru.block_unview: _block_unview,
     rwkv.fold_shards: _fold_shards, rwkv.split_streams: _split_streams,
     rwkv.unfold_shards: _unfold_shards, moe.group_tokens: _group_tokens,
     moe.ungroup: _ungroup,

@@ -168,25 +168,49 @@ def local_chunk_attention(q, k, v, positions_q, positions_kv, window):
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         positions_q = torch.nn.functional.pad(positions_q, (0, pad), value=-(2**30))
         positions_kv = torch.nn.functional.pad(positions_kv, (0, pad), value=2**30)
-    qc = q.reshape(B, nc, C, KV, G, dh)
-    kc = k.reshape(B, nc, C, KV, dh)
-    vc = v.reshape(B, nc, C, KV, dh)
-    pqc = positions_q.reshape(B, nc, C)
-    pkc = positions_kv.reshape(B, nc, C)
-    # the previous chunk (zeros, never visible, for the first)
-    kp = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
-    vp = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
-    pkp = torch.cat([torch.full_like(pkc[:, :1], 2**30), pkc[:, :-1]], dim=1)
-    kk = torch.cat([kp, kc], dim=2)                 # (B,nc,2C,KV,dh)
-    vv = torch.cat([vp, vc], dim=2)
-    pk = torch.cat([pkp, pkc], dim=2)               # (B,nc,2C)
+    qc, kk, vv, pqc, pk = chunk_view(q, k, v, positions_q, positions_kv, C)
     s = torch.einsum("bnqkgd,bntkd->bnkgqt", qc, kk).float() / math.sqrt(dh)
     pq = pqc[:, :, None, None, :, None]
     pt = pk[:, :, None, None, None, :]
     mask = (pt <= pq) & (pt > pq - window)
     w = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-    out = torch.einsum("bnkgqt,bntkd->bnqkgd", w.to(vv.dtype), vv)
-    return out.reshape(B, nc * C, KV, G, dh)[:, :S]
+    out = chunk_unview(torch.einsum("bnkgqt,bntkd->bnqkgd", w.to(vv.dtype), vv))
+    return out[:, :S] if pad else out
+
+
+def chunk_view(q, k, v, positions_q, positions_kv, C):
+    """(qc, kk, vv, pqc, pk): the queries (B, n*C, ...) and their positions
+    as n chunks (B, n, C, ...), and the keys, the values and their positions
+    as each chunk's window (B, n, 2C, ...), the chunk before it (zeros, at
+    position 2**30, which no query sees, before the first) and the chunk.
+
+    While a cell is traced, where the sequence is sharded, the trace's forms
+    (``launch/xlaforms.py``) keep each rank's positions in place: its
+    queries one block of the chunk view (a chunk, or the part of one that
+    the rank holds), each block's window of keys and values gathered over
+    the mesh dims within a chunk, the chunk before by a halo exchange."""
+    if has_torch_function((q, k, v)):
+        return handle_torch_function(chunk_view, (q, k, v), q, k, v, positions_q,
+                                     positions_kv, C)
+    B, S = q.shape[:2]
+
+    def chunks(x):
+        return x.reshape((B, S // C, C) + tuple(x.shape[2:]))
+
+    def windows(x, fill):
+        xc = chunks(x)
+        prev = torch.cat([torch.full_like(xc[:, :1], fill), xc[:, :-1]], dim=1)
+        return torch.cat([prev, xc], dim=2)
+
+    return (chunks(q), windows(k, 0), windows(v, 0), chunks(positions_q),
+            windows(positions_kv, 2**30))
+
+
+def chunk_unview(y):
+    """``chunk_view``'s chunks (B, n, C, ...) back as (B, n*C, ...)."""
+    if has_torch_function_unary(y):
+        return handle_torch_function(chunk_unview, (y,), y)
+    return y.reshape((y.shape[0], y.shape[1] * y.shape[2]) + tuple(y.shape[3:]))
 
 
 def cache_shapes(batch, cache_len, n_kv, d_head, dtype):
