@@ -103,7 +103,12 @@ Phases (any failure exits non-zero and prints no result line):
               against an unsharded cache; 29: rwkv6-7b train_s under dp on
               the multi mesh in 4 microbatches; 215: mixtral-8x7b train_s
               under dp on the single mesh in 16 microbatches of 2 rows,
-              its kinds and useful-FLOP ratio printed) measured by the port's
+              its kinds and useful-FLOP ratio printed), and
+              ``parity.SMOKE_MICROBATCH`` (``--measure-pair 149 16``:
+              qwen2-1.5b train_s under dp on the multi mesh in 16
+              microbatches, a row a rank on half of the model axis, its
+              useful-FLOP ratio within ``parity.COUNTER_BOUND`` of the CPU
+              trace's) measured by the port's
               engine at a low priority, each point's kinds today's
               reference's or a listed difference.  The measure phase also
               prints the rwkv6-7b A1 witness's bytes a device by phase
@@ -3071,20 +3076,26 @@ def measure_frontends_main():
     print(json.dumps({"measure_frontends": summary}), flush=True)
 
 
-def measure_pair_main(index):
-    """``chip_smoke.py --measure-pair INDEX``, in a process of its own from
-    the kernels phases' end, at a low priority (one a point of
+def measure_pair_main(index, n_microbatch=None):
+    """``chip_smoke.py --measure-pair INDEX [N_MICROBATCH]``, in a process of
+    its own from the kernels phases' end, at a low priority (one a point of
     ``parity.SMOKE_PAIRS``: a decode step against an unsharded cache under
     tp, a microbatched rwkv6-7b train step under dp on the multi mesh, and
     mixtral-8x7b's train step in 16 microbatches of 2 rows under dp, its
     local attention's chunk view and MoE's groups on a sequence that
-    carries the batch's ranks):
-    the point of ``benchmarks/results/bench_fidelity_pairs.json`` measured
-    by the port's engine on fake cuda tensors (without the structural
-    dedup, so without the global trace that only fingerprints a point), its
-    kinds today's reference's (``parity.SMOKE_PAIRS``) or a listed
-    difference (``parity.PAIR_KIND_DIFFERENCES``), and no op run replicated
-    but those listed for its class.  The last line is a JSON summary."""
+    carries the batch's ranks; and one of ``parity.SMOKE_MICROBATCH``:
+    qwen2-1.5b's dp train step on the multi mesh in 16 microbatches of 2
+    rows, run in XLA's loop body on half of the model axis with the weights
+    split over data, ``xlaforms._Body``):
+    the point of ``benchmarks/results/bench_fidelity_pairs.json`` (in
+    ``N_MICROBATCH`` microbatches where given) measured by the port's engine
+    on fake cuda tensors (without the structural dedup, so without the
+    global trace that only fingerprints a point), its kinds today's
+    reference's (``parity.SMOKE_PAIRS``, ``parity.SMOKE_MICROBATCH``) or a
+    listed difference (``parity.PAIR_KIND_DIFFERENCES``), a microbatched
+    point's useful-FLOP ratio within ``parity.COUNTER_BOUND`` of the CPU
+    trace's (``parity.MICROBATCH_COUNTERS``), and no op run replicated but
+    those listed for its class.  The last line is a JSON summary."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the measure phase traces on cuda tensors")
     os.nice(10)              # the kernel phases run beside it, on the same cores
@@ -3099,6 +3110,8 @@ def measure_pair_main(index):
         found for found in (parity.pair_points(pairs_file, moe) for moe in (False, True))
         if any(i == index for i, _, _ in found[2]))
     p = next(p for i, p, _ in rows if i == index)
+    if n_microbatch is not None:
+        p = {**p, "n_microbatch": n_microbatch}
     eng = Engine(SearchSpace(bench_archs(archs), BENCH_SHAPES, restrict=restrict),
                  bench_meshes(), persistent_cache=False, struct_dedup=False, device="cuda")
     t0 = time.perf_counter()
@@ -3108,21 +3121,37 @@ def measure_pair_main(index):
     if c is None:
         fail(f"measure pairs: pair {index} failed to trace: {eng.errors}")
     kinds = sorted(anomaly.kinds(c, p["remat"]))
-    ref = list(parity.SMOKE_PAIRS[index])
-    listed = parity.PAIR_KIND_DIFFERENCES.get(index)
-    want = ref if listed is None else list(listed[0])
+    if n_microbatch is None:
+        ref = list(parity.SMOKE_PAIRS[index])
+        listed = parity.PAIR_KIND_DIFFERENCES.get(index)
+        want = ref if listed is None else list(listed[0])
+    else:
+        ref = want = list(parity.SMOKE_MICROBATCH[(index, n_microbatch)])
+    useful = c["perf.useful_flops_ratio"]
     print(f"measure pair {index} {parity.point_key(p)} x{p['n_microbatch']}: kinds {kinds} "
-          f"(reference {ref}, expected {want}), useful-FLOP ratio "
-          f"{c['perf.useful_flops_ratio']:.5f}, {seconds:.1f} s; counters "
-          f"{json.dumps(c)}; ops DTensor ran replicated {json.dumps(eng.replicated_ops)}",
-          flush=True)
+          f"(reference {ref}, expected {want}), useful-FLOP ratio {useful:.5f}, "
+          f"{seconds:.1f} s; counters {json.dumps(c)}; ops DTensor ran replicated "
+          f"{json.dumps(eng.replicated_ops)}", flush=True)
     if kinds != want:
-        fail(f"measure pairs: pair {index} gives kinds {kinds}, expected {want}")
+        fail(f"measure pairs: pair {index} x{p['n_microbatch']} gives kinds {kinds}, "
+             f"expected {want}")
+    if n_microbatch is not None:
+        cpu = parity.MICROBATCH_COUNTERS[n_microbatch]["perf.useful_flops_ratio"][0]
+        if abs(useful / cpu - 1) > parity.COUNTER_BOUND:
+            fail(f"measure pairs: pair {index} x{n_microbatch}'s useful-FLOP ratio "
+                 f"{useful:.5f} is not within {parity.COUNTER_BOUND:.0%} of the CPU "
+                 f"trace's {cpu}")
     unlisted = parity.unlisted_at(eng.replicated_at)
     if unlisted:
         fail(f"measure pairs: pair {index} ran unlisted ops replicated: {unlisted}")
-    print(json.dumps({"measure_pair": {"index": index, "kinds": kinds, "seconds": seconds,
+    print(json.dumps({"measure_pair": {"index": index, "n_microbatch": p["n_microbatch"],
+                                       "kinds": kinds, "seconds": seconds,
                                        "counters": c}}), flush=True)
+
+
+def _pair_tag(row):
+    """A measured pair's index, with its microbatch count where it was set."""
+    return f"{row['index']}x{row['n_microbatch']}"
 
 
 def subprocess_phase_start(*flags):
@@ -3190,10 +3219,13 @@ def corpus_finish(started):
 
 
 def parity_smoke_pairs():
-    """The pairs points the measure pairs phase traces (``parity.SMOKE_PAIRS``)."""
+    """The arguments of the measure pairs phase's processes: each point of
+    ``parity.SMOKE_PAIRS`` by its index, and of ``parity.SMOKE_MICROBATCH``
+    by its index and microbatch count."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import parity
-    return parity.SMOKE_PAIRS
+    return [(str(i),) for i in sorted(parity.SMOKE_PAIRS)] + \
+        [(str(i), str(n)) for i, n in sorted(parity.SMOKE_MICROBATCH)]
 
 
 def measure_phase():
@@ -3543,8 +3575,7 @@ def main():
     dry = dryrun_start()
     # so do the pairs points, a process each, from here to the search
     # phase's end (rwkv6-7b's microbatched train steps take minutes to trace)
-    pairs = [subprocess_phase_start("--measure-pair", str(i))
-             for i in sorted(parity_smoke_pairs())]
+    pairs = [subprocess_phase_start("--measure-pair", *args) for args in parity_smoke_pairs()]
 
     phase("bench_step")
     t_phase = time.perf_counter()
@@ -3609,7 +3640,7 @@ def main():
                       for proc in pairs if proc not in late]
     phase_seconds["measure pairs (waited)"] = time.perf_counter() - t_phase
     print(f"measure pairs: {len(measured_pairs)} pairs points, "
-          f"{json.dumps({r['index']: round(r['seconds'], 1) for r in measured_pairs})} "
+          f"{json.dumps({_pair_tag(r): round(r['seconds'], 1) for r in measured_pairs})} "
           f"seconds each (a process each, from the kernels phases' end to the search "
           f"phase's end); {len(late)} still tracing beside the phases that follow",
           flush=True)
@@ -3746,7 +3777,7 @@ def main():
                          for proc in late]
         phase_seconds["measure pairs (late, waited)"] = time.perf_counter() - t_phase
         print(f"measure pairs: "
-              f"{json.dumps({r['index']: round(r['seconds'], 1) for r in measured_late})} "
+              f"{json.dumps({_pair_tag(r): round(r['seconds'], 1) for r in measured_late})} "
               f"seconds each, beside the serving, training, launch and examples phases",
               flush=True)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_seconds.items()})}",
@@ -3882,7 +3913,7 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--measure-frontends"]:
         measure_frontends_main()
     elif sys.argv[1:2] == ["--measure-pair"]:
-        measure_pair_main(int(sys.argv[2]))
+        measure_pair_main(*(int(a) for a in sys.argv[2:4]))
     elif sys.argv[1:] == ["--dryrun"]:
         dryrun_main()
     elif sys.argv[1:2] == ["--step-times"]:

@@ -188,21 +188,7 @@ PAIR_STORED_DIFFERENCES = {
 # (``tests/reference_counters.py --wire``: the layer loop's forward and
 # backward bodies, the microbatch loop's, and the rest) and the port's by
 # phase (``traceanalysis.analyze``'s ``bytes_by_phase``).
-_TWO_ROW = ("a microbatch of 1-2 rows on 32 dp ranks (MICROBATCH_COUNTERS): XLA keeps it "
-            "on half a mesh axis and splits the weights' input dim over data in its loop; "
-            "the port's microbatch runs whole on every rank (9-10x XLA's FLOPs; its only "
-            "collectives of size are the ZeRO-1 update's gathers)")
 PAIR_KIND_DIFFERENCES = {
-    50: (("A1", "A2", "A3"), ("A1", "A2"), {"perf.useful_flops_ratio": (0.085497, 0.34784)},
-         "rwkv6-7b-bench train_s under ep on the single mesh, 16 microbatches of 2 rows, "
-         "which no whole mesh axis of the batch divides (4 data ranks): XLA keeps them on "
-         "half an axis, the port's microbatch runs whole on every rank (4.1x XLA's FLOPs)"),
-    65: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.42982, 12.075)},
-         "rwkv6-7b-bench train_s under dp on the multi mesh, 16 microbatches: " + _TWO_ROW),
-    137: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.42982, 11.735)},
-          "as 65"),
-    138: (("A1", "A3"), ("A1", "A2", "A3"), {"diag.collective_blowup": (0.42982, 21.546)},
-          "as 65, 32 microbatches of 1 row"),
     222: (("A1", "A2"), ("A1",), {"diag.collective_blowup": (5.4797, 3.532)},
           "mixtral-8x7b-bench train_s under tp on the single mesh, 8 microbatches, one row "
           "a rank: XLA writes the replica groups of the activations' partial sums in its "
@@ -276,22 +262,33 @@ COUNTER_BOUND = 0.15
 # between its rows' ranks and the constraints' by collective-permutes
 # (``xlaforms._from_batch``); the table's gradient under ZeRO-1 is split
 # over the idle model axis (``xlaforms._unembed``), which moves the port's
-# FLOPs under XLA's.  At 16 a microbatch has 2 rows: XLA puts them on the
-# low bit of the model axis, half an axis, and splits the weights' input dim
-# over data inside its loop (from the ZeRO-1 state's sharding; its dots are
-# 256 tokens by a quarter of the width), 5.4x the ideal FLOPs; no mesh axis
-# of the batch rules divides 2 rows, so the port's microbatch is whole on
-# all 32 ranks (32x: its gradients are replicated, and only the ZeRO-1
-# update's gathers move bytes).  That point stays listed: the port cannot
-# shard on half a mesh axis.
+# FLOPs under XLA's.  At 16 a microbatch has 2 rows, one a rank on the low
+# half of the model axis, and XLA's loop splits the weights over data
+# (the stacked layers' embedding dim, the tied table's vocab) as ZeRO-1
+# leaves them: its products contract a quarter of the width, their partial
+# sums all-reduced over data, each layer's weight gradients all-gathered
+# over data (``xlaforms._Body``).  The trace's FLOPs are 7 % over XLA's
+# (the unembedding's input gradient, made on a quarter of the table where
+# XLA makes it on a sixteenth), and its wire 1.29x XLA's as the reference
+# counts it: XLA writes the replica groups of its layer loop's all-reduces
+# of partial activations over data out as lists, which the reference's
+# analyzer reads as groups of 2 (80 MB of the 115 MB; the trace counts
+# their true group of 4, as at pair 222), and the trace's backward
+# reduce-scatters 28 MB of the norms' input gradients onto the split.
 MICROBATCH_COUNTERS = {
     1: {"perf.useful_flops_ratio": (0.92759, 0.92759),
         "diag.collective_wire_bytes": (7.192e7, 6.5616e7)},
     4: {"perf.useful_flops_ratio": (0.25697, 0.22459),
         "diag.collective_wire_bytes": (2.0126e8, 2.8497e8)},
-    16: {"perf.useful_flops_ratio": (0.028987, 0.17287),
-         "diag.collective_wire_bytes": (1.3839e7, 4.1256e8)},
+    16: {"perf.useful_flops_ratio": (0.16115, 0.17287),
+         "diag.collective_wire_bytes": (5.2713e8, 4.1256e8)},
 }
+
+# The dp microbatch points chip_smoke.py's measure pairs phase traces on the
+# card: (the pairs file's index, n_microbatch) -> today's reference's kinds
+# (tests/test_torch_search.py holds them and the port's CPU trace to a
+# fresh reference run).
+SMOKE_MICROBATCH = {(149, 16): ("A1", "A2", "A3")}
 
 
 # qwen2-1.5b at train_4k on the 16x16 production mesh (fsdp, remat dots), the
@@ -605,8 +602,12 @@ def main(argv=None):
             counts["reference"] += got == row["reference"]
             counts["stored_is_reference"] += row["stored"] == row["reference"]
         counts["stored"] += got == row["stored"]
+        values = "" if c is None else ", " + ", ".join(
+            f"{k.split('.')[1]} {c[k]:.5g}" + ("" if i not in fresh else f" [{fresh[i][k]:.5g}]")
+            for k in ("perf.useful_flops_ratio", "perf.roofline_efficiency",
+                      "diag.collective_blowup"))
         print(f"pair {i} {point_key(p)}: stored {row['stored']}, reference "
-              f"{row.get('reference', 'not run')}, port {got}", flush=True)
+              f"{row.get('reference', 'not run')}, port {got}{values}", flush=True)
         if got != row["stored"] or got != row.get("reference", got):
             differ.append(row)
     eng.close()

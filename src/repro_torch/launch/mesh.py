@@ -39,6 +39,8 @@ class Mesh:
     sizes: tuple
     first: int = 0
     _meshes: dict = dataclasses.field(default_factory=dict, repr=False)
+    _parent: "Mesh | None" = dataclasses.field(default=None, repr=False)
+    _splits: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -48,17 +50,44 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.sizes)
 
-    def device_mesh(self, device_type: str = "cuda"):
-        """The ``DeviceMesh`` of these ranks for ``device_type`` tensors."""
-        dm = self._meshes.get(device_type)
+    def device_mesh(self, device_type: str = "cuda", dims: tuple | None = None):
+        """The ``DeviceMesh`` of these ranks for ``device_type`` tensors, or
+        its sub-mesh over mesh dims ``dims`` that holds this process's rank."""
+        key = device_type if dims is None else (device_type, tuple(dims))
+        dm = self._meshes.get(key)
         if dm is None:
             import torch
             from torch.distributed.device_mesh import DeviceMesh
-            init_fake_process_group()
-            ranks = torch.arange(self.first, self.first + self.size).reshape(self.sizes)
-            dm = DeviceMesh(device_type, ranks, mesh_dim_names=self.axis_names)
-            self._meshes[device_type] = dm
+            from torch.utils._python_dispatch import _disable_current_modes
+            if dims is not None:
+                whole = self.device_mesh(device_type)
+            elif self._parent is None:
+                init_fake_process_group()
+            else:
+                self._parent.device_mesh(device_type)
+            with _disable_current_modes():   # a split made while a step is traced
+                if dims is not None:
+                    dm = whole[tuple(dims)]
+                else:
+                    ranks = torch.arange(self.first, self.first + self.size).reshape(self.sizes)
+                    dm = DeviceMesh(device_type, ranks, mesh_dim_names=self.axis_names)
+            self._meshes[key] = dm
         return dm
+
+    def split(self, axis: str, lo: int) -> "Mesh":
+        """This mesh over the same ranks in the same order, with ``axis``
+        split into ``axis_hi`` x ``axis_lo`` (``lo`` ranks), whose
+        ``DeviceMesh`` is this one's ranks reshaped: a shard on ``axis`` is
+        the same chunk on the same rank as a shard on both halves."""
+        out = self._splits.get((axis, lo))
+        if out is None:
+            i = self.axis_names.index(axis)
+            names = self.axis_names[:i] + (f"{axis}_hi", f"{axis}_lo") + self.axis_names[i + 1:]
+            sizes = self.sizes[:i] + (self.sizes[i] // lo, lo) + self.sizes[i + 1:]
+            out = make_mesh(sizes, names, self.first)
+            out._parent = self
+            self._splits[(axis, lo)] = out
+        return out
 
 
 def make_mesh(shape, axes, first: int = 0) -> Mesh:

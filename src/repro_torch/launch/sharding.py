@@ -153,6 +153,29 @@ def spec_for(shape: Sequence[int], axes: Sequence[str | None],
     return tuple(out)
 
 
+def zero1_spec(shape: Sequence[int], spec: Sequence, mesh) -> tuple:
+    """A parameter's ``spec`` with the ZeRO-1 optimizer state's extra "data"
+    shard on its first dim that no mesh axis shards and "data" divides (the
+    spec itself where "data" is taken or missing)."""
+    parts = list(spec)
+    used = {m for p in parts for m in entry_axes(p)}
+    if "data" in mesh.shape and "data" not in used:
+        dsz = mesh.shape["data"]
+        for i, (dim, pt) in enumerate(zip(shape, parts)):
+            if pt is None and dim % dsz == 0 and dim >= dsz:
+                parts[i] = "data"
+                break
+    return tuple(parts)
+
+
+def split_rules(rules: Mapping, axis: str, halves: tuple) -> dict:
+    """``rules`` with mesh axis ``axis`` named as its two ``halves`` in every
+    candidate (``launch.mesh.Mesh.split``): a dim resolved over ``axis`` is
+    sharded over both, the same chunks on the same ranks."""
+    return {k: tuple(tuple(m for a in cand for m in (halves if a == axis else (a,)))
+                     for cand in v) for k, v in rules.items()}
+
+
 def entry_axes(entry) -> tuple:
     if entry is None or entry is UNCONSTRAINED:
         return ()
@@ -240,7 +263,7 @@ def active():
 
 
 @dataclasses.dataclass(frozen=True)
-class _SubMesh:
+class SubMesh:
     """The active mesh less some axes: the names and sizes that rules and
     placements read."""
     axis_names: tuple
@@ -263,11 +286,24 @@ def manual_axes(names):
         return
     mesh = _CTX.mesh
     keep = [(n, mesh.shape[n]) for n in mesh.axis_names if n not in names]
-    sub = _SubMesh(tuple(n for n, _ in keep), tuple(s for _, s in keep))
+    sub = SubMesh(tuple(n for n, _ in keep), tuple(s for _, s in keep))
     rules = {k: tuple(c for c in v if not any(m in names for m in c))
              for k, v in _CTX.rules.items()}
     prev = (_CTX.mesh, _CTX.rules)
     _CTX.mesh, _CTX.rules = sub, rules
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+@contextlib.contextmanager
+def resolving_on(mesh, rules: Mapping):
+    """Inside, ``maybe_constrain`` resolves ``rules`` on ``mesh`` (a loop
+    body's finer mesh over the same ranks), logging to the enclosing
+    ``use_rules``'s log."""
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = mesh, rules
     try:
         yield
     finally:

@@ -29,7 +29,7 @@ from ..train.train_step import (make_decode_step, make_init_opt, make_prefill_st
                                 make_train_step)
 from . import traceanalysis, xlaforms
 from .sharding import (ZERO1, FallbackStats, placements_for, spec_for, tree_specs,
-                       use_rules)
+                       use_rules, zero1_spec)
 
 
 def _zero1_specs(mesh, shapes, axes_tree, rules, stats=None):
@@ -39,15 +39,7 @@ def _zero1_specs(mesh, shapes, axes_tree, rules, stats=None):
         if isinstance(shapes, dict):
             return {k: walk(shapes[k], axes[k]) for k in shapes}
         shape = shapes[0]
-        parts = list(spec_for(shape, axes, rules, mesh, stats=stats))
-        used = {m for p in parts if p for m in ((p,) if isinstance(p, str) else p)}
-        if "data" in mesh.shape and "data" not in used:
-            dsz = mesh.shape["data"]
-            for i, (dim, pt) in enumerate(zip(shape, parts)):
-                if pt is None and dim % dsz == 0 and dim >= dsz:
-                    parts[i] = "data"
-                    break
-        return tuple(parts)
+        return zero1_spec(shape, spec_for(shape, axes, rules, mesh, stats=stats), mesh)
     return walk(shapes, axes_tree)
 
 

@@ -79,6 +79,11 @@ into the forms the reference's program has:
   microbatch on other ranks than the constraints put its rows on, the
   tokens' embedding and the logits (``transformer.from_batch``) move
   between the two by a collective-permute each way (``_from_batch``);
+  a dense microbatch of rows that no whole mesh axis divides runs in the
+  loop body XLA's loop runs (``train_step.loop_body``, ``_Body``): its rows
+  on part of the last batch axis, a mesh dim of the body's finer mesh over
+  the same ranks, and, under ZeRO-1, each weight split over the ZeRO-1
+  axis, its gradient gathered back into the optimizer state's layout;
 * the logits' product of a train step under ZeRO-1 with the table whole
   (``transformer.unembed``) makes the table's gradient as GSPMD makes it
   in the optimizer state's layout: split over an idle mesh axis, reduced,
@@ -107,6 +112,7 @@ Nothing here runs outside a trace: serving and training call torch's ops.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import string
@@ -145,7 +151,9 @@ def _out_shape(eqn, a_shape, b_shape):
 
 @torch.library.custom_op("repro_trace::dot_general", mutates_args=())
 def _dot_general(a: torch.Tensor, b: torch.Tensor, rank: int, eqn: str) -> torch.Tensor:
-    return torch.einsum(eqn, a, b)
+    # contiguous, as the fake implementation's output (DTensor views a
+    # local result by the strides that one gives)
+    return torch.einsum(eqn, a, b).contiguous()
 
 
 def dot_general(a, b, eqn: str):
@@ -184,11 +192,24 @@ def _gathered_for_kept_shards(a, b, eqn):
     cache are left to DTensor.)"""
     from torch.distributed.tensor import DTensor, Replicate
     if not (isinstance(a, DTensor) and isinstance(b, DTensor)) \
-            or a.device_mesh != b.device_mesh or b.numel() > a.numel():
+            or a.device_mesh != b.device_mesh:
         return a, b
     ea, eb, eo = _parse(eqn)
     contracted = set(ea) & set(eb) - set(eo)
     batch = set(ea) & set(eb) & set(eo)
+    if _IN_BODY[0]:
+        # in a microbatch loop's body (``_Body``), ``a`` split over the ZeRO-1
+        # axis on a contracted letter where ``b`` (the table looked up in,
+        # split on its vocab) shards a letter of its own there: ``a``
+        # gathered, as XLA gathers the embedding's split for the logits,
+        # where DTensor would move both
+        pa = [Replicate() if x.is_shard() and y.is_shard() and ea[x.dim] in contracted
+              and eb[y.dim] in eo and eb[y.dim] not in ea else x
+              for x, y in zip(a.placements, b.placements)]
+        if pa != list(a.placements):
+            a = a.redistribute(a.device_mesh, pa)
+    if b.numel() > a.numel():
+        return a, b
     pb = list(b.placements)
     for i, (x, y) in enumerate(zip(a.placements, pb)):
         if not (x.is_shard() and y.is_shard()):
@@ -398,6 +419,23 @@ def _log_softmax(x, dim=None, dtype=None, *args, **kwargs):
     return x - m - torch.log(_summed(s))
 
 
+def _mean(x, dim=None, keepdim=False, *, dtype=None, out=None):
+    """``mean`` of a DTensor along a dim the mesh shards, in a microbatch
+    loop's body (``_Body``: a norm over the embedding that the weights'
+    split puts on data): the partial sums all-reduced at once, as XLA's
+    partitioner all-reduces a reduction's partial result where it makes it.
+    DTensor would reduce-scatter them onto the sequence and carry that split
+    into the backward, making the output projections' weight gradients on
+    sequence shards, all-reduced over data."""
+    if out is not None or dtype is not None or dim is None or not _dtensor(x) \
+            or not _IN_BODY[0]:
+        return NotImplemented
+    dims = [dim] if isinstance(dim, int) else list(dim)
+    if not any(_sharded_on(x, d % x.dim()) for d in dims):
+        return NotImplemented
+    return _summed(torch.sum(x, dim, keepdim)) / math.prod(x.shape[d] for d in dims)
+
+
 def _softmax(x, dim=None, dtype=None, *args, **kwargs):
     if dim is None or args or kwargs or not _dtensor(x) or not _sharded_on(x, dim):
         return NotImplemented
@@ -511,21 +549,29 @@ class _Lookup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.table = (table.device_mesh, tuple(table.placements), tuple(table.shape),
-                     table.to_local().shape[0])
+        from torch.distributed.tensor import Replicate
+        dm, placements = table.device_mesh, table.placements
+        rows = table.to_local().shape[0]
+        want = [Replicate() if p.is_shard(0) else q for p, q in zip(placements, idx.placements)]
+        # the rank's own rows (its block of the mesh dims that shard them,
+        # in order); the others' ids to one more row, which the backward drops
+        block, coord = 0, dm.get_coordinate()
+        for i, p in enumerate(placements):
+            if p.is_shard(0):
+                block = block * dm.size(i) + coord[i]
+        local = idx.redistribute(dm, want).to_local() - block * rows
+        ctx.save_for_backward(torch.where((local >= 0) & (local < rows), local, rows))
+        ctx.table = (dm, tuple(placements), tuple(table.shape), rows, want)
         return _summed(F.embedding(idx, table))
 
     @staticmethod
     def backward(ctx, g):
         from torch.distributed.tensor import Partial, Replicate, Shard
-        (idx,) = ctx.saved_tensors
-        dm, placements, shape, rows = ctx.table
-        want = [Replicate() if p.is_shard(0) else q for p, q in zip(placements, idx.placements)]
-        idx = idx.redistribute(dm, want)
+        (local,) = ctx.saved_tensors
+        dm, placements, shape, rows, want = ctx.table
         g = g.redistribute(dm, want)
-        local = torch.ops.aten.embedding_dense_backward(g.to_local(), idx.to_local(),
-                                                        rows, -1, False)
+        local = torch.ops.aten.embedding_dense_backward(g.to_local(), local, rows + 1, rows,
+                                                        False)[:rows]
         out = [Shard(0) if p.is_shard(0) else Partial() if q.is_shard() else Replicate()
                for p, q in zip(placements, want)]
         return _from_local(local, dm, out, shape), None
@@ -960,12 +1006,16 @@ def _microbatches(a, n, moe_groups=0):
     constrained over the batch axes; where those begin with the rows'
     axes, XLA carries the others back through the (B, S) -> groups reshape
     onto the sequence, and the whole microbatch stays sharded on every
-    rank.  Here: one redistribution of the batch to that layout (the spare
-    axes gathered, or moved onto the sequence by an all-to-all), then each
-    rank's own slices of its rows.  (Each rank's i-th block of rows, where
-    XLA takes rows i·B/n onward: the same partition of the batch into n
-    microbatches for every rank at once, as a data-parallel program splits
-    its local batch; only shapes and collectives enter the counters.)"""
+    rank.  Rows that no whole mesh axis divides (a dense step's 1-2 rows)
+    stay on the R/n minor ranks of the reshape where R > n: the low part of
+    the last batch axis, a mesh axis of its own on the loop body's finer
+    mesh (``_Body``).  Here: one redistribution of the batch to that
+    layout (the spare axes gathered, or moved onto the sequence by an
+    all-to-all), then each rank's own slices of its rows.  (Each rank's
+    i-th block of rows, where XLA takes rows i·B/n onward: the same
+    partition of the batch into n microbatches for every rank at once, as
+    a data-parallel program splits its local batch; only shapes and
+    collectives enter the counters.)"""
     from torch.distributed.tensor import Replicate, Shard
     mesh, rules = sharding.active()
     if not _dtensor(a) or mesh is None:
@@ -980,6 +1030,10 @@ def _microbatches(a, n, moe_groups=0):
         if group_axes[:len(row_axes)] == row_axes and a.shape[1] % math.prod(
                 mesh.shape[m] for m in rest) == 0:
             seq_axes = rest
+    body = None if row_axes or moe_groups else _Body.of(a, n, mesh, rules)
+    if body is not None and body.split:
+        a = body.onto_fine(a)
+        row_axes = (body.halves[1],)
     dm = a.device_mesh
     want = [Shard(0) if m in row_axes else Shard(1) if m in seq_axes else Replicate()
             for m in dm.mesh_dim_names]
@@ -992,6 +1046,7 @@ def _microbatches(a, n, moe_groups=0):
                                           + tuple(local.shape[1:])).unbind(0))
     for t in out:
         t.resliced = resliced
+        t.body = body
     return out
 
 
@@ -1000,9 +1055,9 @@ def _resliced(a, n, row_axes) -> bool:
     ``a`` with its rows on other ranks than the step's constraints put them
     on: XLA tiles the rows of the (n, B/n) reshape over the minor B's ranks
     (R/n of the R that shard the batch, or none where R <= n), which the
-    rows' axes match only where they are the batch's trailing axes.  Rows
-    that no whole mesh axis divides run whole on every rank here (XLA keeps
-    them on part of an axis): no layout to move between."""
+    rows' axes match only where they are the batch's trailing axes.  (Rows
+    that no whole mesh axis divides are on those minor ranks already, or
+    whole where R <= n: ``_Body``.)"""
     dm = a.device_mesh
     axes = [m for m, p in zip(dm.mesh_dim_names, a.placements) if p.is_shard(0)]
     ranks = math.prod(dm.size(dm.mesh_dim_names.index(m)) for m in axes)
@@ -1010,6 +1065,214 @@ def _resliced(a, n, row_axes) -> bool:
         return False
     return tuple(axes[len(axes) - len(row_axes):]) != tuple(row_axes) \
         or math.prod(dm.size(dm.mesh_dim_names.index(m)) for m in row_axes) != ranks // n
+
+
+class _Body:
+    """How XLA's loop over microbatches computes a dense step's microbatch
+    of rows that no whole mesh axis divides (the HLO of qwen2-1.5b-bench's
+    and rwkv6-7b-bench's train steps in 16 or 32 microbatches).
+
+    * The rows sit on the R/n minor ranks of the batch's R (``_microbatches``,
+      where R > n): ``lo`` = R/n ranks of the last batch axis ``split``, which
+      the body's mesh ``fine`` splits into ``split_hi`` x ``split_lo`` over
+      the same ranks (``launch.mesh.Mesh.split``).  The batch's other axes
+      (``spare``) compute the microbatch again: where every tensor that
+      enters the body is replicated on them, the body runs on the sub-mesh
+      of the rest, which holds the same local work and collectives (and
+      leaves DTensor no spare axis to shard a product on where XLA does
+      not).  ``rules`` name ``split`` as both halves.
+    * Under ZeRO-1 (the rules' ``sharding.ZERO1`` axis ``zero``, "data"),
+      each weight enters the body split over that axis on its embedding
+      dim, and the table the tokens are looked up in on its vocab, the dim
+      its optimizer state is split on (``split_dim``; ZeRO-1 splits the
+      stacked layers' dim, which the layer loop slices): the body's
+      products contract a quarter of the width and all-reduce their partial
+      sums over ``zero``, and each weight's gradient, made on that split, is
+      all-gathered and kept in its optimizer state's layout
+      (``_IntoBody``).  (XLA also splits rwkv6-7b's untied unembedding
+      table's vocab over idle ranks; here it stays whole.)
+    """
+
+    def __init__(self, mesh, split, lo, zero, rules, spare):
+        self.mesh, self.split, self.zero = mesh, split, zero
+        self.fine = mesh.split(split, lo) if split else mesh
+        self.halves = (f"{split}_hi", f"{split}_lo") if split else ()
+        self.rules = sharding.split_rules(rules, split, self.halves) if split else rules
+        self.spare = tuple(spare) + self.halves[:1]
+
+    @classmethod
+    def of(cls, a, n, mesh, rules):
+        """The body of batch ``a``'s ``n`` microbatches, or None where it is
+        the step's own (a per-pod body's mesh, no rows on part of an axis
+        and no ZeRO-1)."""
+        if not hasattr(mesh, "split"):
+            return None
+        dm = a.device_mesh
+        names = dm.mesh_dim_names
+        axes = [m for m, p in zip(names, a.placements) if p.is_shard(0)]
+        ranks = math.prod(dm.size(names.index(m)) for m in axes)
+        zero = [m for cand in rules.get(sharding.ZERO1, ()) for m in cand]
+        zero = zero[0] if len(zero) == 1 and zero[0] in names else None
+        split, lo = None, ranks // n
+        if axes and ranks > n and ranks % n == 0 and axes[-1] != zero \
+                and dm.size(names.index(axes[-1])) % lo == 0:
+            split = axes[-1]
+        if split is None and zero is None:
+            return None
+        return cls(mesh, split, lo, zero, rules, [m for m in axes if m not in (zero, split)])
+
+    def onto_fine(self, t):
+        """DTensor ``t`` of the step's mesh on ``fine``: no data moves."""
+        if not self.split:
+            return t
+        return _from_local(t.to_local(), self.fine.device_mesh(t.device_mesh.device_type),
+                           self.fine_placements(t.placements), tuple(t.shape))
+
+    def fine_placements(self, placements):
+        """Placements on the step's mesh as ``fine``'s (``split``'s twice)."""
+        return [q for m, p in zip(self.mesh.axis_names, placements)
+                for q in ((p, p) if m == self.split else (p,))]
+
+    def split_dim(self, t, axes, looked_up):
+        """The dim of weight ``t`` (logical ``axes``) that the body splits over
+        ``zero``, or None: its embedding dim, or, for the table the tokens
+        are looked up in (``looked_up``) and a weight without one, the dim its
+        optimizer state is split on, unless that is the stacked layers' dim
+        that the layer loop slices.  A product's weight only, not a vector
+        (a norm's scale, a bias), which a split leaves no product to save and
+        which torch 2.11's DTensor aligns the activation it scales to,
+        gathering its rows."""
+        if self.zero is None or t.dim() - (axes[:1] == ("layers",)) < 2 or not t.placements[
+                self.mesh.axis_names.index(self.zero)].is_replicate():
+            return None
+        spec = _spec_of(t)
+        size = self.mesh.shape[self.zero]
+        embed = next((i for i, ax in enumerate(axes) if ax == "embed" and spec[i] is None
+                      and t.shape[i] % size == 0), None)
+        if embed is not None and not looked_up:
+            return embed
+        z = sharding.zero1_spec(tuple(t.shape), spec, self.mesh)
+        d = next((i for i, (p, q) in enumerate(zip(spec, z)) if p != q), None)
+        return None if d is None or axes[d] == "layers" else d
+
+    def state_placements(self, t):
+        """The placements of ``t``'s ZeRO-1 optimizer state on the step's
+        mesh (``t``'s own without ZeRO-1)."""
+        spec = _spec_of(t)
+        if self.zero is not None:
+            spec = sharding.zero1_spec(tuple(t.shape), spec, self.mesh)
+        return list(sharding.placements_for(spec, self.mesh))
+
+
+def _spec_of(t) -> tuple:
+    """DTensor ``t``'s spec: per dim, the mesh axes that shard it, or None."""
+    names = t.device_mesh.mesh_dim_names
+    return tuple(tuple(m for m, p in zip(names, t.placements) if p.is_shard(d)) or None
+                 for d in range(t.dim()))
+
+
+def _loop_body(params, mb, axes):
+    """``train_step.loop_body``: where ``_microbatches`` marked the
+    microbatch with a ``_Body``, the params and the microbatch on its mesh,
+    the params split as it says, with its rules active while the
+    microbatch's forward and backward run."""
+    from ..models.module import flatten
+    body = getattr(flatten(mb)[0][1], "body", None)
+    if body is None:
+        return NotImplemented
+    return _in_body(body, params, mb, axes)
+
+
+# how many microbatch loop bodies the trace is in (``_in_body``; autograd's
+# recompute may run on another thread)
+_IN_BODY = [0]
+
+
+@contextlib.contextmanager
+def _in_body(body, params, mb, axes):
+    from ..models.module import flatten, unflatten
+    paths, leaves = zip(*flatten(params))
+    logical = dict(flatten(axes))
+    batch = flatten(mb)
+    names = body.fine.axis_names
+    placed = [body.fine_placements(t.placements) for t in leaves if _dtensor(t)] \
+        + [t.placements for _, t in batch]
+    kept = tuple(m for i, m in enumerate(names) if m not in body.spare
+                 or not all(pl[i].is_replicate() for pl in placed))
+    dm = body.fine.device_mesh(batch[0][1].device_mesh.device_type,
+                               kept if kept != names else None)
+    # (the tokens' embedding looks rows up in params["embed"]["table"])
+    moved = _IntoBody.apply(body, dm, kept, [(logical[p], p[:1] == ("embed",)) for p in paths],
+                            *leaves)
+    batch = [(p, _from_local(t.to_local(), dm, [q for m, q in zip(names, t.placements)
+                                                if m in kept], tuple(t.shape)))
+             for p, t in batch]
+    view = sharding.SubMesh(kept, tuple(body.fine.shape[m] for m in kept))
+    _IN_BODY[0] += 1
+    try:
+        with sharding.resolving_on(view, body.rules):
+            yield unflatten(zip(paths, moved)), unflatten(batch)
+    finally:
+        _IN_BODY[0] -= 1
+
+
+class _IntoBody(torch.autograd.Function):
+    """The step's params as a ``_Body`` computes with them (``axes``: each
+    one's logical axes, and whether the tokens are looked up in it): each
+    on the body's mesh ``dm`` (the fine mesh's dims ``kept``), its local
+    shard kept (no data moves), and split over the ZeRO-1 axis on
+    ``_Body.split_dim`` by a local slice.  The backward brings each
+    gradient into its optimizer state's layout on the step's mesh: partial
+    sums all-reduced, a split other than the state's all-gathered (XLA
+    gathers each layer's weight gradients over the ZeRO-1 axis in its layer
+    loop's backward and keeps its own layer), then sliced to the state's
+    shards."""
+
+    @staticmethod
+    def forward(ctx, body, dm, kept, axes, *params):
+        from torch.distributed.tensor import Shard
+        names = body.fine.axis_names
+        ctx.set_materialize_grads(False)
+        ctx.like = []
+        out = []
+        for t, (ax, looked_up) in zip(params, axes):
+            if not _dtensor(t):
+                ctx.like.append(None)
+                out.append(t)
+                continue
+            placements = body.fine_placements(t.placements)
+            local = t.to_local()
+            d = body.split_dim(t, ax, looked_up)
+            if d is not None:
+                z = dm.mesh_dim_names.index(body.zero)
+                size = t.shape[d] // dm.size(z)
+                local = local.narrow(d, dm.get_local_rank(z) * size, size).contiguous()
+                placements[names.index(body.zero)] = Shard(d)
+            state = body.state_placements(t)
+            ctx.like.append((t.device_mesh, state, tuple(t.shape),
+                             [p for m, p in zip(names, body.fine_placements(state))
+                              if m in kept]))
+            out.append(_from_local(local, dm, [p for m, p in zip(names, placements)
+                                               if m in kept], tuple(t.shape)))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import Replicate
+        out = []
+        for g, like in zip(grads, ctx.like):
+            if like is None or g is None:
+                out.append(g)
+                continue
+            dm, state, shape, want = like
+            mid = [Replicate() if p.is_partial() or (p.is_shard() and p != q) else p
+                   for p, q in zip(g.placements, want)]
+            if mid != list(g.placements):
+                g = g.redistribute(g.device_mesh, mid)
+            if mid != want:
+                g = g.redistribute(g.device_mesh, want)
+            out.append(_from_local(g.to_local(), dm, state, shape))
+        return (None, None, None, None) + tuple(out)
 
 
 def _from_batch(x, leaf):
@@ -1296,12 +1559,13 @@ _REWRITES = {
     torch.einsum: _einsum,
     torch.log_softmax: _log_softmax, torch.Tensor.log_softmax: _log_softmax,
     torch.softmax: _softmax, torch.Tensor.softmax: _softmax,
+    torch.mean: _mean, torch.Tensor.mean: _mean,
     torch.gather: _gather, torch.Tensor.gather: _gather,
     torch.Tensor.__getitem__: _getitem, F.pad: _pad,
     torch.cumsum: _cumsum, torch.Tensor.cumsum: _cumsum,
     torch.stack: _stack,
     attn.group_heads: _group_heads, attn.kv_for: _kv_for,
-    train_step.microbatches: _microbatches,
+    train_step.microbatches: _microbatches, train_step.loop_body: _loop_body,
     tfm.unembed: _unembed, tfm.from_batch: _from_batch,
     layers.shift: _shift, attn.chunk_view: _chunk_view, attn.chunk_unview: _chunk_unview,
     rglru.block_view: _block_view, rglru.block_unview: _block_unview,

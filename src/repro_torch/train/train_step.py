@@ -8,6 +8,8 @@ the optimizer update.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.overrides import handle_torch_function, has_torch_function_unary
 
@@ -49,6 +51,19 @@ def microbatches(a, n: int, moe_groups: int = 0):
     return a.reshape((n, b // n) + tuple(a.shape[1:])).unbind(0)
 
 
+def loop_body(params, mb, axes):
+    """The params and the microbatch ``mb`` as the loop over microbatches
+    computes with them, as a context (``with loop_body(params, mb, axes) as
+    (p, m)``, around the microbatch's forward and backward): themselves.
+    ``axes`` is the params' logical-axes tree.  While a train step is
+    traced on a mesh, the trace's forms (``launch/xlaforms.py``) put them on
+    the mesh and in the layout of XLA's loop."""
+    leaf = flatten(mb)[0][1]
+    if has_torch_function_unary(leaf):
+        return handle_torch_function(loop_body, (leaf,), params, mb, axes)
+    return contextlib.nullcontext((params, mb))
+
+
 def _moe_groups(cfg, batch, n: int) -> int:
     """The MoE layers' group count of one of ``n`` microbatches (0 without
     MoE)."""
@@ -74,11 +89,13 @@ def compute_grads(cfg, policy, params, batch):
     if n > 1:
         groups = _moe_groups(cfg, batch, n)
         parts = tree_map(lambda a: microbatches(a, n, groups), batch)
+    axes = api.axes(cfg)
     gsum = lsum = asum = None
     for i in range(n):
         mb = tree_map(lambda t: t[i], parts) if n > 1 else batch
-        loss, aux = loss_fn(live, mb)
-        grads = torch.autograd.grad(loss, leaves)
+        with loop_body(live, mb, axes) as (body_params, body_mb):
+            loss, aux = loss_fn(body_params, body_mb)
+            grads = torch.autograd.grad(loss, leaves)
         if gsum is None:
             gsum = [g.float() for g in grads]
             lsum, asum = loss.detach(), aux.detach()

@@ -24,7 +24,8 @@
   in ``parity.PAIR_STORED_DIFFERENCES`` with both values.
 * At the dp train point on the multi mesh with 1, 4 and 16 microbatches the
   port's useful-FLOP ratio and wire bytes, and the fresh reference's, equal
-  ``parity.MICROBATCH_COUNTERS``.
+  ``parity.MICROBATCH_COUNTERS``; at 16 the port's kinds are the
+  reference's.
 * Ops run replicated only where ``parity.REPLICATED_OPS`` admits them at
   the traced point's class.
 
@@ -292,6 +293,19 @@ def test_dp_microbatch_counters_against_reference(pair_measurements, n_micro):
     for counter, (port_v, ref_v) in parity.MICROBATCH_COUNTERS[n_micro].items():
         assert port_counters[counter] == pytest.approx(port_v, rel=1e-3), counter
         assert now[counter] == pytest.approx(ref_v, rel=1e-3), counter
+
+
+def test_dp_microbatch_kinds_at_16_are_the_references(pair_measurements):
+    """In 16 microbatches of 2 rows (``xlaforms._Body``: a row a rank on
+    half of the model axis, the weights split over data in the loop) the
+    port's kinds are the fresh reference's, which ``chip_smoke.py`` holds
+    the card to (``parity.SMOKE_MICROBATCH``)."""
+    _, rows, eng = pair_measurements
+    p, port_counters, now = next(r for r in rows if r[0]["n_microbatch"] == 16)
+    assert port_counters is not None, eng.errors
+    assert not parity.unlisted_at(eng.replicated_at)
+    assert _kinds(port_counters, p["remat"]) == _kinds(now, p["remat"]) \
+        == parity.SMOKE_MICROBATCH[(149, 16)]
 
 
 @pytest.mark.parametrize("n_micro", [2, 4])
